@@ -1,0 +1,95 @@
+"""Call-time device resolution, block sizing and memory budgets.
+
+The PyTorch counterpart of ``repro.kernels.dispatch``. Two rules carry
+over:
+
+1. **Nothing is decided at import.** :func:`resolve_device` picks the
+   device when an entry point is called: the caller's ``device`` if given,
+   else the CUDA card. With no card and no explicit device it raises; it
+   never falls back to the CPU silently.
+2. **One knob surface.** Block sizes resolve as explicit argument >
+   ``REPRO_BLOCK_<FAMILY>`` env var > registry default, and the memory
+   budget comes from one place.
+
+The autotune cache of the reference is not ported yet.
+"""
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on, resolved now (not at import).
+
+    ``device`` wins when given (``"cpu"`` runs the plain PyTorch versions
+    of the kernels). Otherwise the port runs on the CUDA card and raises
+    if there is none.
+    """
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions on the CPU")
+    return torch.device("cuda")
+
+
+def _env_bytes(name: str, default: int) -> int:
+    raw = os.environ.get(name)
+    if not raw:
+        return default
+    return int(float(raw))
+
+
+def materialize_budget() -> int:
+    """Device-memory budget for materializing the (s, s) spar_cost loss matrix.
+
+    16 GiB, a fifth of an 80 GB H100. It admits the main path's support
+    (n = 2048, s = 16n = 32768: a 4 GiB matrix, built in one gather with a
+    12 GiB transient) and leaves most of the card to the caller. Above it
+    ``"auto"`` takes the gather-fused kernel, which needs no (s, s) storage.
+    """
+    return _env_bytes("REPRO_SPAR_MATERIALIZE_BUDGET", 16 * 2**30)
+
+
+@dataclass
+class KernelFamily:
+    name: str
+    default_block: int
+    description: str = ""
+
+
+_REGISTRY: dict[str, KernelFamily] = {}
+
+
+def register(name: str, default_block: int,
+             description: str = "") -> KernelFamily:
+    """Register (or re-register, idempotently) a kernel family."""
+    fam = KernelFamily(name, default_block, description)
+    _REGISTRY[name] = fam
+    return fam
+
+
+def block_size(family: str, override: Optional[int] = None,
+               cap: Optional[int] = None) -> int:
+    """Resolve the block size for a kernel family.
+
+    Priority: ``override`` arg > ``REPRO_BLOCK_<FAMILY>`` env > registry
+    default (128 for an unregistered family). ``cap`` clamps from above
+    while keeping the result >= 1.
+    """
+    bs = override
+    if bs is None:
+        env = os.environ.get(f"REPRO_BLOCK_{family.upper()}")
+        if env:
+            bs = int(env)
+    if bs is None:
+        fam = _REGISTRY.get(family)
+        bs = fam.default_block if fam is not None else 128
+    if cap is not None:
+        bs = min(bs, cap)
+    return max(int(bs), 1)

@@ -1,0 +1,111 @@
+"""Public wrappers + impl dispatch for the COO spar_cost family.
+
+Three interchangeable implementations of the affine contract
+``fn(t, off) = L-matvec(t) + off``, under the reference's impl names:
+
+- ``"jnp"``          — the plain row-chunked version (``ref.spar_cost_ref``);
+                       gathers (chunk, s) support blocks every call.
+- ``"pallas"``       — the gather-fused kernel (``spar_cost_cuda``); no
+                       (s, s) storage. On CPU tensors, its plain version.
+- ``"materialized"`` — the iteration-invariant loss matrix is built once
+                       (O(s²) device memory, budget-gated) and every call
+                       is the matvec kernel (``spar_matvec_cuda``). On CPU
+                       tensors, ``Lmat @ t + off``.
+
+``"auto"`` picks ``materialized`` while s²·4 bytes fit the budget, else
+``pallas`` on CUDA tensors and ``jnp`` on CPU tensors. Nothing is padded:
+the kernels mask their ragged edges themselves.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.spar_cost.ref import materialize_loss, spar_cost_ref
+from repro_torch.kernels.spar_cost.spar_cost import (
+    spar_cost_cuda,
+    spar_matvec_cuda,
+)
+
+dispatch.register("spar_cost", default_block=256,
+                  description="COO cost assembly (SPAR-GW hot path); block "
+                              "= CUDA threads per block, one warp per row")
+
+
+def resolve_impl(impl: str, s: int, device) -> str:
+    """Resolve ``"auto"`` to a concrete impl for a support of size s."""
+    if impl != "auto":
+        return impl
+    if s * s * 4 <= dispatch.materialize_budget():
+        return "materialized"
+    return "pallas" if torch.device(device).type == "cuda" else "jnp"
+
+
+def _vec(x, s: int, device):
+    """A scalar or (s,) offset as a contiguous (s,) float32 on ``device``."""
+    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    return x.expand(s).contiguous() if x.ndim == 0 else x.contiguous()
+
+
+def spar_cost_fused(Cx, Cy, rows, cols, t, off=0.0, loss: str = "l2",
+                    block: Optional[int] = None):
+    """One-shot gather-fused cost: L @ t + off on the COO support, (s,)."""
+    s, dev = rows.shape[0], rows.device
+    b = dispatch.block_size("spar_cost", block)
+    return spar_cost_cuda(Cx.float().contiguous(), Cy.float().contiguous(),
+                          rows.int().contiguous(), cols.int().contiguous(),
+                          _vec(t, s, dev), _vec(off, s, dev), loss=loss,
+                          threads=b)
+
+
+def spar_matvec(Lmat, t, off=0.0, block: Optional[int] = None):
+    """One-shot materialized-support matvec: Lmat @ t + off, (s,)."""
+    s, dev = Lmat.shape[0], Lmat.device
+    b = dispatch.block_size("spar_cost", block)
+    return spar_matvec_cuda(Lmat.float().contiguous(), _vec(t, s, dev),
+                            _vec(off, s, dev), threads=b)
+
+
+def make_spar_cost_fn(Cx, Cy, rows, cols, loss: str, impl: str = "auto",
+                      chunk: int = 1024, block: Optional[int] = None
+                      ) -> Callable[..., torch.Tensor]:
+    """Build ``fn(t, off=0.0) -> (s,) f32`` computing L-matvec(t) + off.
+
+    Per-support setup (impl resolution, index conversion, loss
+    materialization) happens here, once; every outer iteration then pays
+    only the fused kernel or the matvec.
+    """
+    s, dev = rows.shape[0], rows.device
+    impl = resolve_impl(impl, s, dev)
+
+    if impl == "jnp":
+        def fn(t, off=0.0):
+            return spar_cost_ref(Cx, Cy, rows, cols, t, loss, chunk) + off
+        return fn
+
+    b = dispatch.block_size("spar_cost", block)
+    if impl == "pallas":
+        Cxc, Cyc = Cx.float().contiguous(), Cy.float().contiguous()
+        rows32, cols32 = rows.int().contiguous(), cols.int().contiguous()
+
+        def fn(t, off=0.0):
+            return spar_cost_cuda(Cxc, Cyc, rows32, cols32, _vec(t, s, dev),
+                                  _vec(off, s, dev), loss=loss, threads=b)
+        return fn
+
+    if impl == "materialized":
+        # the gate bounds the resident s² matrix; the one-shot gather also
+        # needs a ~3·s² transient (Gx, Gy, result), so past that build it
+        # in row chunks with an O(chunk·s) transient
+        direct_ok = 3 * s * s * 4 <= dispatch.materialize_budget()
+        Lmat = materialize_loss(Cx, Cy, rows, cols, loss,
+                                None if direct_ok else chunk).contiguous()
+
+        def fn(t, off=0.0):
+            return spar_matvec_cuda(Lmat, _vec(t, s, dev), _vec(off, s, dev),
+                                    threads=b)
+        return fn
+
+    raise ValueError(f"unknown spar_cost impl: {impl!r}")

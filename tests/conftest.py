@@ -18,6 +18,8 @@ def pytest_configure(config):
         "markers",
         "optional_dep(name): test requires an optional dev dependency; "
         "skipped (not errored) when the package is not installed.")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips with the reason without one")
 
 
 def pytest_collection_modifyitems(config, items):
