@@ -7,6 +7,8 @@ call :func:`solve`; it runs on the CUDA card unless ``device="cpu"``.
 """
 from repro_torch.api import (
     Geometry,
+    GridCoupling,
+    GridGWSolver,
     GWOutput,
     QuadraticProblem,
     SparGWSolver,
@@ -23,9 +25,11 @@ __all__ = [
     "QuadraticProblem",
     "GWOutput",
     "SparseCoupling",
+    "GridCoupling",
     "solve",
     "select_solver",
     "SparGWSolver",
+    "GridGWSolver",
     "get_solver",
     "register_solver",
     "available_solvers",

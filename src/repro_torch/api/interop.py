@@ -3,8 +3,8 @@
 For GW the state that both sides must share is the problem's data (cost
 matrices and marginals), the solver's fields, and the sampled support
 (JAX's threefry draws cannot be reproduced with a torch generator). The
-reference side hands these over as numpy arrays and a plain dict of
-``SparGWSolver`` fields; the port's output comes back as numpy.
+reference side hands these over as numpy arrays and a plain dict of the
+solver's fields; the port's output comes back as numpy.
 """
 from __future__ import annotations
 
@@ -12,9 +12,9 @@ import numpy as np
 import torch
 
 from repro_torch.api.geometry import Geometry
-from repro_torch.api.output import GWOutput
+from repro_torch.api.output import GridCoupling, GWOutput
 from repro_torch.api.problem import QuadraticProblem
-from repro_torch.api.solvers import SparGWSolver
+from repro_torch.api.solvers import get_solver
 
 
 def to_problem(Cx, a, Cy, b, loss: str = "l2", device="cpu"
@@ -25,25 +25,30 @@ def to_problem(Cx, a, Cy, b, loss: str = "l2", device="cpu"
     return QuadraticProblem(gx, gy, loss=loss).to(torch.device(device))
 
 
-def to_solver(fields: dict) -> SparGWSolver:
-    """A port ``SparGWSolver`` from the reference's field values."""
-    return SparGWSolver(**fields)
+def to_solver(fields: dict, name: str = "spar_gw"):
+    """The port's config of solver ``name`` (``"spar_gw"``, ``"grid_gw"``)
+    from the reference's field values."""
+    return get_solver(name)(**fields)
 
 
 def to_support(rows, cols, device="cpu"):
-    """The reference's sampled support as int64 index tensors."""
+    """The reference's sampled support (COO pairs, or the grid's row and
+    col sets) as int64 index tensors."""
     return (torch.tensor(np.asarray(rows), dtype=torch.int64, device=device),
             torch.tensor(np.asarray(cols), dtype=torch.int64, device=device))
 
 
 def output_to_numpy(out: GWOutput) -> dict:
-    """The port's output as numpy arrays and Python numbers."""
+    """The port's output as numpy arrays and Python numbers: the coupling
+    as ``rows``, ``cols`` and ``vals`` (COO) or ``block`` (grid)."""
     st = out.status
+    c = out.coupling
+    key = "block" if isinstance(c, GridCoupling) else "vals"
     return {
         "value": float(out.value),
-        "rows": out.coupling.rows.cpu().numpy(),
-        "cols": out.coupling.cols.cpu().numpy(),
-        "vals": out.coupling.vals.cpu().numpy(),
+        "rows": c.rows.cpu().numpy(),
+        "cols": c.cols.cpu().numpy(),
+        key: c[2].cpu().numpy(),
         "errors": out.errors.cpu().numpy(),
         "converged": bool(out.converged),
         "n_iters": int(out.n_iters),

@@ -1,4 +1,4 @@
-"""Structured solver output — ``GWOutput`` and the COO coupling."""
+"""Structured solver output — ``GWOutput`` and the coupling containers."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -24,12 +24,28 @@ class SparseCoupling(NamedTuple):
         return Z.index_put_((self.rows, self.cols), self.vals, accumulate=True)
 
 
+class GridCoupling(NamedTuple):
+    """Factorized (grid) coupling: block[k, l] sits at (rows[k], cols[l]).
+
+    ``todense`` merges duplicate rows or cols by summation.
+    """
+    rows: Any    # (s_r,) int64
+    cols: Any    # (s_c,) int64
+    block: Any   # (s_r, s_c) float32
+
+    def todense(self, m: int, n: int):
+        Z = torch.zeros((m, n), dtype=self.block.dtype,
+                        device=self.block.device)
+        return Z.index_put_((self.rows[:, None], self.cols[None, :]),
+                            self.block, accumulate=True)
+
+
 @dataclass(frozen=True)
 class GWOutput:
     """Result of one GW solve.
 
     value     — 0-d tensor: the objective estimate
-    coupling  — a ``SparseCoupling``
+    coupling  — a ``SparseCoupling`` or a ``GridCoupling``
     errors    — (outer_iters,) marginal ℓ1 error after each outer
                 iteration; NaN beyond ``n_iters`` and at rescued iterations
     converged — True iff the outer loop met its tolerance (False at tol=0)

@@ -23,8 +23,7 @@ _LOWRANK_LOSSES = ("l2", "kl")
 
 # solvers of the reference that the port does not have yet, with the
 # ROADMAP queue-1 item that brings each
-_NOT_PORTED = {"dense_gw": 8, "grid_gw": 9, "lowrank_gw": 10,
-               "quantized_gw": 11}
+_NOT_PORTED = {"dense_gw": 8, "lowrank_gw": 10, "quantized_gw": 11}
 
 
 def _solver_class(name: str):

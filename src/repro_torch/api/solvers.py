@@ -1,4 +1,5 @@
-"""Solver configurations + runners (counterpart of repro.api.solvers, spar part).
+"""Solver configurations + runners (counterpart of repro.api.solvers: the
+balanced spar and grid parts).
 
 Each solver is a frozen dataclass registered in a name registry
 (``get_solver`` / ``available_solvers``); ``run(problem, generator,
@@ -14,9 +15,12 @@ from typing import Any
 import torch
 
 from repro_torch.api.driver import pga_loop
-from repro_torch.api.output import GWOutput, SparseCoupling
+from repro_torch.api.output import GridCoupling, GWOutput, SparseCoupling
 from repro_torch.core import sampling
+from repro_torch.core.grid_gw import _dedup_marginal, grid_cost
 from repro_torch.core.sinkhorn import (
+    sinkhorn,
+    sinkhorn_log,
     sparse_sinkhorn,
     sparse_sinkhorn_logdomain,
 )
@@ -55,6 +59,30 @@ def _coo_marginal_err(T, rows, cols, a, b):
     mu = torch.zeros_like(a).index_add_(0, rows, T)
     nu = torch.zeros_like(b).index_add_(0, cols, T)
     return torch.sum(torch.abs(mu - a)) + torch.sum(torch.abs(nu - b))
+
+
+def _dense_marginal_err(T, a, b):
+    return (torch.sum(torch.abs(T.sum(dim=1) - a))
+            + torch.sum(torch.abs(T.sum(dim=0) - b)))
+
+
+def _injected_support(support, shapes, m: int, n: int, device):
+    """The caller's ``(rows, cols)`` as int64 tensors on ``device``, held to
+    the expected ``shapes`` and to the index ranges [0, m) and [0, n)."""
+    rows, cols = (torch.as_tensor(x, dtype=torch.int64, device=device)
+                  for x in support)
+    got = (tuple(rows.shape), tuple(cols.shape))
+    if got != tuple(shapes):
+        raise ValueError(f"support must be index arrays of shapes "
+                         f"{shapes[0]} and {shapes[1]}, got {got[0]} and "
+                         f"{got[1]}")
+    lo_r, hi_r, lo_c, hi_c = torch.stack(
+        [*torch.aminmax(rows), *torch.aminmax(cols)]).tolist()
+    if lo_r < 0 or hi_r >= m or lo_c < 0 or hi_c >= n:
+        raise ValueError(
+            f"support indices out of range: rows in [{lo_r}, {hi_r}] for "
+            f"m={m}, cols in [{lo_c}, {hi_c}] for n={n}")
+    return rows, cols
 
 
 def _spar_pga_step(T, scale, cost_fn, a, b, rows, cols, w, logw, m: int,
@@ -153,18 +181,8 @@ class SparGWSolver:
         if support is None:
             rows, cols = sampling.sample_pairs(generator, probs, self.s)
         else:
-            rows, cols = (torch.as_tensor(x, dtype=torch.int64,
-                                          device=a.device) for x in support)
-            if tuple(rows.shape) != (self.s,) or tuple(cols.shape) != (self.s,):
-                raise ValueError(
-                    f"support must be two ({self.s},) index arrays, got "
-                    f"{tuple(rows.shape)} and {tuple(cols.shape)}")
-            lo_r, hi_r, lo_c, hi_c = torch.stack(
-                [*torch.aminmax(rows), *torch.aminmax(cols)]).tolist()
-            if lo_r < 0 or hi_r >= m or lo_c < 0 or hi_c >= n:
-                raise ValueError(
-                    f"support indices out of range: rows in [{lo_r}, "
-                    f"{hi_r}] for m={m}, cols in [{lo_c}, {hi_c}] for n={n}")
+            rows, cols = _injected_support(support, ((self.s,), (self.s,)),
+                                           m, n, a.device)
         p = probs.pair_prob(rows, cols)                     # (s,)
         w = 1.0 / (self.s * p)                              # importance adj.
         T0 = flush_subnormal(a[rows] * b[cols])             # step 4 init on S
@@ -188,5 +206,126 @@ class SparGWSolver:
         else:
             value = quad
         return GWOutput(value=value, coupling=SparseCoupling(rows, cols, T),
+                        errors=errors, converged=converged, n_iters=n_iters,
+                        status=status, trace=trace)
+
+
+def _grid_block_data(problem, R, C, shrink: float):
+    """What a grid solve keeps for its support R × C: the sub-blocks
+    CxR (s_r, s_r) and CyC (s_c, s_c), the deduplicated and renormalized
+    marginals aR and bC, and the importance weights w (s_r, s_c)."""
+    Cx, a = problem.geom_x.cost_matrix, problem.geom_x.weights
+    Cy, b = problem.geom_y.cost_matrix, problem.geom_y.weights
+    probs = sampling.balanced_probs(a, b, shrink)
+    CxR = Cx[R][:, R]
+    CyC = Cy[C][:, C]
+    s = R.shape[0] * C.shape[0]
+    w = 1.0 / (s * probs.pa[R][:, None] * probs.pb[C][None, :])
+    aR = _dedup_marginal(R, a, a.shape[0])
+    bC = _dedup_marginal(C, b, b.shape[0])
+    # normalize to unit mass (covered-support renormalization)
+    return CxR, CyC, aR / aR.sum(), bC / bC.sum(), w
+
+
+def _grid_plain_kernel(Cmat, w, T, eps, reg: str):
+    """The plain-domain kernel matrix of a grid step (stable=False)."""
+    Cs = Cmat - torch.min(Cmat)        # constant shift — Sinkhorn-invariant
+    K = flush_subnormal(flush_subnormal(torch.exp(-Cs / eps)) * w)
+    if reg == "prox":
+        K = flush_subnormal(K * T)
+    return K
+
+
+def _grid_pga_step(T, scale, CxR, CyC, aR, bC, w, logw, loss: str,
+                   use_kernel: bool, epsilon, inner_iters: int,
+                   inner_tol: float, reg: str, stable: bool):
+    """One proximal/entropic PGA outer step on the grid support.
+
+    ``scale`` is the loop's ε-rescue escalation (1.0 until a rescue).
+    """
+    eps = epsilon * scale
+    Cmat = grid_cost(CxR, CyC, T, loss, use_kernel)
+    if stable:
+        logK = -Cmat / eps + logw
+        if reg == "prox":
+            logK = logK + log_floor(T)
+        return sinkhorn_log(aR, bC, logK, inner_iters, tol=inner_tol)
+    return sinkhorn(aR, bC, _grid_plain_kernel(Cmat, w, T, eps, reg),
+                    inner_iters, tol=inner_tol)
+
+
+@register_solver("grid_gw")
+@dataclass(frozen=True)
+class GridGWSolver:
+    """Grid-structured SPAR-GW: support = R × C, dense s_r × s_c block.
+
+    Balanced problems only (no fused/unbalanced grid variant yet).
+    ``use_kernel`` routes the arbitrary-loss cost assembly through the
+    ``gw_cost`` kernel; decomposable losses (l2, kl) take two matmuls
+    either way. ``fault`` and ``trace`` must stay at their defaults until
+    fault injection and traces are ported.
+    """
+    s_r: int = 0
+    s_c: int = 0
+    reg: str = "prox"
+    epsilon: Any = 1e-2
+    outer_iters: int = 20
+    inner_iters: int = 50
+    tol: float = 0.0
+    inner_tol: float = 0.0
+    shrink: float = 0.0
+    use_kernel: bool = False
+    stable: bool = True
+    max_rescues: int = 2
+    rescue_factor: float = 2.0
+    fault: Any = None
+    trace: bool = False
+
+    requires_key = True
+
+    @classmethod
+    def default_config(cls, n: int):
+        side = max(8, int(round((16 * n) ** 0.5)))   # equal budget s = 16n
+        return cls(s_r=side, s_c=side)
+
+    def run(self, problem, generator=None, support=None) -> GWOutput:
+        """Solve ``problem`` on its device.
+
+        ``support=(R, C)`` fixes the row and col sets (int indices of
+        shapes (s_r,) and (s_c,)); otherwise ``generator`` draws them.
+        """
+        if self.s_r <= 0 or self.s_c <= 0:
+            raise ValueError(
+                "GridGWSolver requires s_r > 0 and s_c > 0 (grid support "
+                "side lengths); use GridGWSolver.default_config(n)")
+        if generator is None and support is None:
+            raise ValueError(
+                "GridGWSolver draws a random support: pass generator="
+                "torch.Generator(...) or support=(R, C)")
+        if problem.is_fused or problem.is_unbalanced:
+            raise NotImplementedError(
+                "GridGWSolver supports balanced non-fused problems only; "
+                "use SparGWSolver for fused/unbalanced variants")
+        a, b = problem.geom_x.weights, problem.geom_y.weights
+        if support is None:
+            probs = sampling.balanced_probs(a, b, self.shrink)
+            R, C = sampling.sample_grid(generator, probs, self.s_r, self.s_c)
+        else:
+            R, C = _injected_support(support, ((self.s_r,), (self.s_c,)),
+                                     a.shape[0], b.shape[0], a.device)
+        CxR, CyC, aR, bC, w = _grid_block_data(problem, R, C, self.shrink)
+        T0 = flush_subnormal(aR[:, None] * bC[None, :])
+        step = partial(_grid_pga_step, CxR=CxR, CyC=CyC, aR=aR, bC=bC, w=w,
+                       logw=torch.log(w), loss=problem.loss,
+                       use_kernel=self.use_kernel, epsilon=self.epsilon,
+                       inner_iters=self.inner_iters,
+                       inner_tol=self.inner_tol, reg=self.reg,
+                       stable=self.stable)
+        err_fn = partial(_dense_marginal_err, a=aR, b=bC)
+        T, errors, n_iters, converged, status, trace = pga_loop(
+            step, err_fn, T0, self.outer_iters, self.tol, **_health_kw(self))
+        value = torch.sum(T * grid_cost(CxR, CyC, T, problem.loss,
+                                        self.use_kernel))
+        return GWOutput(value=value, coupling=GridCoupling(R, C, T),
                         errors=errors, converged=converged, n_iters=n_iters,
                         status=status, trace=trace)

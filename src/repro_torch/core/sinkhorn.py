@@ -1,7 +1,8 @@
-"""Sparse (COO) Sinkhorn scaling: the paper's Step 7 with sparse matvecs, O(H s).
+"""Sinkhorn scaling, dense and sparse (COO): the paper's Step 7.
 
-Counterpart of the sparse half of ``repro.core.sinkhorn``. Segment sums
-are ``index_add_``; segment maxima are ``scatter_reduce("amax",
+Counterpart of the balanced half of ``repro.core.sinkhorn``: the dense
+plain and log-domain loops (the grid path's s_r x s_c block) and the
+sparse ones, O(H s). Sparse segment sums are ``index_add_``; segment maxima are ``scatter_reduce("amax",
 include_self=False)`` into an output initialised to -inf, so an empty
 segment keeps -inf exactly as ``jax.ops.segment_max`` gives it and takes
 the ``_NEG_INF`` branch. Indices are int64 (``scatter_reduce`` needs it).
@@ -13,6 +14,10 @@ which reads that change on the host after every iteration.
 Subnormals are flushed where the reference's XLA flush changes a result
 (see ``core/utils.py``): the marginals' logs, the plain-domain inputs and
 the products inside its matvecs, and the returned coupling values.
+
+``differentiable`` is kept in the dense signatures for parity: torch's
+plain loop is already differentiable, so it only keeps the reference's
+refusal of ``tol > 0`` with it.
 """
 from __future__ import annotations
 
@@ -47,6 +52,63 @@ def _scaling_loop(body, init, iters: int, tol: float):
         if bool(delta <= tol):
             break
     return carry
+
+
+def _check_differentiable(differentiable: bool, tol: float):
+    if differentiable and tol and tol > 0.0:
+        raise ValueError(
+            "tol-based early stopping is not supported with "
+            "differentiable=True (reverse-mode AD needs the fixed-length "
+            "scan); pass tol=0")
+
+
+def dense_matvec(K, x):
+    """y_i = Σ_j K_ij x_j with every product flushed, as XLA sums them."""
+    return flush_subnormal(K * x[None, :]).sum(dim=1)
+
+
+def sinkhorn(a, b, K, iters: int, differentiable: bool = False,
+             tol: float = 0.0):
+    """Plain Sinkhorn scaling (Alg. 1 step 5): u = a ⊘ (K v), v = b ⊘ (Kᵀ u).
+
+    Returns the dense coupling diag(u) K diag(v); rows/cols whose
+    denominator is 0 get scaling 0 (dead).
+    """
+    _check_differentiable(differentiable, tol)
+    a, b, K = flush_subnormal(a), flush_subnormal(b), flush_subnormal(K)
+    m, n = K.shape
+    u0 = torch.ones(m, dtype=K.dtype, device=K.device)
+    v0 = torch.ones(n, dtype=K.dtype, device=K.device)
+    Kt = K.t()
+
+    def body(carry):
+        u, v = carry
+        u = safe_div(a, dense_matvec(K, v))
+        v = safe_div(b, dense_matvec(Kt, u))
+        return (u, v)
+
+    u, v = _scaling_loop(body, (u0, v0), iters, tol)
+    return flush_subnormal(flush_subnormal(u[:, None] * K) * v[None, :])
+
+
+def sinkhorn_log(a, b, logK, iters: int, differentiable: bool = False,
+                 tol: float = 0.0):
+    """Log-domain Sinkhorn on a dense log-kernel. Returns the coupling T."""
+    _check_differentiable(differentiable, tol)
+    m, n = logK.shape
+    la = log_floor(a)
+    lb = log_floor(b)
+    f0 = torch.zeros(m, dtype=logK.dtype, device=logK.device)
+    g0 = torch.zeros(n, dtype=logK.dtype, device=logK.device)
+
+    def body(carry):
+        f, g = carry
+        f = _finite(la - torch.logsumexp(logK + g[None, :], dim=1))
+        g = _finite(lb - torch.logsumexp(logK + f[:, None], dim=0))
+        return (f, g)
+
+    f, g = _scaling_loop(body, (f0, g0), iters, tol)
+    return flush_subnormal(torch.exp(logK + f[:, None] + g[None, :]))
 
 
 def coo_matvec(rows, cols, vals, x, out_dim: int):

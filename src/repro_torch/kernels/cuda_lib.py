@@ -1,4 +1,5 @@
-"""Build the port's CUDA sources with nvcc and load them with ctypes.
+"""Build the port's CUDA sources with nvcc and load them with ctypes, and
+the checks every wrapper makes before a launch.
 
 Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
 interface, compiled for ``sm_90a`` at first use into ``build/kernels/`` at
@@ -75,3 +76,27 @@ def load(name: str) -> ctypes.CDLL:
     """The library built from ``csrc/<name>.cu``, building it if needed."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+# ground-loss codes of the kernels' C interfaces
+LOSS_CODES = {"l1": 0, "l2": 1, "kl": 2}
+
+
+def check_tensor(name, x, shape, dtype, device):
+    """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: the kernels take nothing else."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def raise_on(err: int, name: str):
+    """Raise if a launcher returned a cudaError_t other than 0."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")

@@ -26,10 +26,10 @@ import functools
 import torch
 
 from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.cuda_lib import LOSS_CODES, check_tensor, raise_on
 from repro_torch.kernels.spar_cost.ref import spar_cost_ref
 
 LAUNCHES = {"spar_matvec": 0, "spar_cost_fused": 0}
-LOSS_CODES = {"l1": 0, "l2": 1, "kl": 2}
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
@@ -55,27 +55,10 @@ def _fused_fn():
     return fn
 
 
-def _check(name, x, shape, dtype, device):
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_threads(threads: int):
     if threads <= 0 or threads % 32 or threads > 1024:
         raise ValueError(f"threads per block must be a multiple of 32 in "
                          f"[32, 1024], got {threads}")
-
-
-def _raise_on(err: int, name: str):
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
 
 
 def spar_matvec_plain(Lmat, t, off):
@@ -93,13 +76,13 @@ def spar_matvec_cuda(Lmat, t, off, threads: int = 256):
         return spar_matvec_plain(Lmat, t, off)
     s = Lmat.shape[0]
     dev = Lmat.device
-    _check("Lmat", Lmat, (s, s), torch.float32, dev)
-    _check("t", t, (s,), torch.float32, dev)
-    _check("off", off, (s,), torch.float32, dev)
+    check_tensor("Lmat", Lmat, (s, s), torch.float32, dev)
+    check_tensor("t", t, (s,), torch.float32, dev)
+    check_tensor("off", off, (s,), torch.float32, dev)
     _check_threads(threads)
     out = torch.empty(s, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _raise_on(_matvec_fn()(Lmat.data_ptr(), t.data_ptr(), off.data_ptr(),
+    raise_on(_matvec_fn()(Lmat.data_ptr(), t.data_ptr(), off.data_ptr(),
                            out.data_ptr(), s, threads, stream), "spar_matvec")
     LAUNCHES["spar_matvec"] += 1
     return out
@@ -125,12 +108,12 @@ def spar_cost_cuda(Cx, Cy, rows, cols, t, off, loss: str = "l2",
         return spar_cost_plain(Cx, Cy, rows, cols, t, off, loss)
     m, n, s = Cx.shape[0], Cy.shape[0], rows.shape[0]
     dev = Cx.device
-    _check("Cx", Cx, (m, m), torch.float32, dev)
-    _check("Cy", Cy, (n, n), torch.float32, dev)
-    _check("rows", rows, (s,), torch.int32, dev)
-    _check("cols", cols, (s,), torch.int32, dev)
-    _check("t", t, (s,), torch.float32, dev)
-    _check("off", off, (s,), torch.float32, dev)
+    check_tensor("Cx", Cx, (m, m), torch.float32, dev)
+    check_tensor("Cy", Cy, (n, n), torch.float32, dev)
+    check_tensor("rows", rows, (s,), torch.int32, dev)
+    check_tensor("cols", cols, (s,), torch.int32, dev)
+    check_tensor("t", t, (s,), torch.float32, dev)
+    check_tensor("off", off, (s,), torch.float32, dev)
     _check_threads(threads)
     if s:   # the kernel reads Cx/Cy at these indices: keep them in range
         lo_r, hi_r = torch.aminmax(rows)
@@ -143,7 +126,7 @@ def spar_cost_cuda(Cx, Cy, rows, cols, t, off, loss: str = "l2",
                              f"[{lo_c}, {hi_c}] for n={n}")
     out = torch.empty(s, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _raise_on(_fused_fn()(Cx.data_ptr(), m, Cy.data_ptr(), n, rows.data_ptr(),
+    raise_on(_fused_fn()(Cx.data_ptr(), m, Cy.data_ptr(), n, rows.data_ptr(),
                           cols.data_ptr(), t.data_ptr(), off.data_ptr(),
                           out.data_ptr(), s, LOSS_CODES[loss], threads,
                           stream), "spar_cost_fused")

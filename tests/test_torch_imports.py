@@ -62,3 +62,18 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dispatch.resolve_device()
     assert dispatch.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_grid_solver_and_kernel_entry_points_raise_without_a_card(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    n = 64
+    a = np.full(n, 1.0 / n, np.float32)
+    C = np.ones((n, n), np.float32)
+    p = interop.to_problem(C, a, C, a, "l1")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.solve(p, repro_torch.GridGWSolver(s_r=8, s_c=8),
+                          generator=torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.solve(p, "grid_gw",
+                          generator=torch.Generator().manual_seed(0))

@@ -56,3 +56,30 @@ def test_same_seed_same_draw():
                                      1000)
     (r1, c1), (r2, c2) = draw(), draw()
     assert torch.equal(r1, r2) and torch.equal(c1, c2)
+
+
+@pytest.mark.parametrize("shrink", [0.0, 0.3])
+def test_grid_frequencies_match_balanced_probs(shrink):
+    """R and C are i.i.d. draws from pa and pb; the grid R × C carries every
+    pair with the product probability (same 5-sigma band as above)."""
+    a, b = _weights()
+    probs = sampling.balanced_probs(a, b, shrink)
+    s_r, s_c = 200_000, 150_000
+    R, C = sampling.sample_grid(torch.Generator().manual_seed(2), probs, s_r,
+                                s_c)
+    assert R.dtype == torch.int64 and R.shape == (s_r,) and C.shape == (s_c,)
+    np.testing.assert_allclose(np.bincount(R.numpy(), minlength=5) / s_r,
+                               probs.pa.numpy(), atol=0.006)
+    np.testing.assert_allclose(np.bincount(C.numpy(), minlength=3) / s_c,
+                               probs.pb.numpy(), atol=0.006)
+
+
+def test_grid_draws_rows_then_cols_like_sample_pairs():
+    """Same generator state, same stream: R is sample_pairs' rows and C its
+    cols when the sizes agree."""
+    probs = sampling.balanced_probs(*_weights())
+    R, C = sampling.sample_grid(torch.Generator().manual_seed(4), probs, 500,
+                                500)
+    rows, cols = sampling.sample_pairs(torch.Generator().manual_seed(4),
+                                       probs, 500)
+    assert torch.equal(R, rows) and torch.equal(C, cols)

@@ -1,14 +1,16 @@
-"""Parity of the port's sparse Sinkhorn with the JAX reference, on the CPU.
+"""Parity of the port's sparse and dense Sinkhorn with the JAX reference, CPU.
 
 Tolerance: rtol 1e-5, atol 1e-7 on couplings, potentials and segment
 reductions. Both sides run fp32 with the same algorithm; they differ in
-the order of the segment sums (XLA scatter vs ``index_add_``) and in the
-last ulp of exp/log, which the scaling iterations carry along.
+the order of the segment sums (XLA scatter vs ``index_add_``) or of the
+dense matvecs, and in the last ulp of exp/log, which the scaling
+iterations carry along.
 
 The subnormal cases hold the port to the reference where XLA's flush of
 float32 subnormals changes a result (see repro_torch/core/utils.py):
 a zero or subnormal marginal entry, subnormal kernel values, and a
-coupling with subnormal entries entering the proximal log.
+coupling with subnormal entries entering the proximal log, for the sparse
+and the dense loops.
 """
 import importlib
 
@@ -171,4 +173,98 @@ def test_prox_step_with_subnormal_coupling_entries(stable):
     assert np.all(want[:5] == 0.0)
     assert np.all(got.numpy()[:5] == 0.0)
     assert not np.any((got.numpy() != 0) & (np.abs(got.numpy()) < FLT_MIN))
+    _close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# Dense loops (the grid path's s_r x s_c block)
+# ---------------------------------------------------------------------------
+
+def _dense(m, n, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.random(m).astype(np.float32) + 0.1
+    b = rng.random(n).astype(np.float32) + 0.1
+    return a / a.sum(), b / b.sum(), rng
+
+
+def _both_dense(fn_name, a, b, K, iters, tol):
+    want = getattr(jsk, fn_name)(jnp.asarray(a), jnp.asarray(b),
+                                 jnp.asarray(K), iters, tol=tol)
+    got = getattr(sk, fn_name)(torch.from_numpy(a), torch.from_numpy(b),
+                               torch.from_numpy(K), iters, tol=tol)
+    return np.asarray(want), got.numpy()
+
+
+@pytest.mark.parametrize("tol", [0.0, 1e-4])
+def test_dense_plain_matches_reference(tol):
+    a, b, rng = _dense(17, 13, seed=8)
+    K = np.exp(-3 * rng.random((17, 13))).astype(np.float32)
+    want, got = _both_dense("sinkhorn", a, b, K, 50, tol)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("tol", [0.0, 1e-4])
+def test_dense_log_matches_reference(tol):
+    a, b, rng = _dense(17, 13, seed=9)
+    logK = (3 * rng.standard_normal((17, 13))).astype(np.float32)
+    logK[4, :] = -np.inf                          # a row with no support
+    want, got = _both_dense("sinkhorn_log", a, b, logK, 50, tol)
+    _close(got, want)
+
+
+def test_dense_tol_stops_early_like_reference():
+    a, b, rng = _dense(12, 10, seed=10)
+    logK = rng.standard_normal((12, 10)).astype(np.float32)
+    full, _ = _both_dense("sinkhorn_log", a, b, logK, 500, 0.0)
+    want, got = _both_dense("sinkhorn_log", a, b, logK, 500, 1e-2)
+    assert np.max(np.abs(want - full)) > 1e-6      # it did stop early
+    _close(got, want)
+
+
+@pytest.mark.parametrize("fn_name", ["sinkhorn", "sinkhorn_log"])
+def test_dense_zero_and_subnormal_marginal_entries(fn_name):
+    """a_0 subnormal and a_1 zero: the reference's flush makes both 0, so
+    the plain loop gives their rows scaling 0 and the log loop's log floor
+    is -inf there (potential clamped to 0: full kernel mass)."""
+    a, b, rng = _dense(10, 8, seed=11)
+    a[0], a[1] = np.float32(1e-40), 0.0
+    K = rng.random((10, 8)).astype(np.float32) + 0.1
+    if fn_name == "sinkhorn_log":
+        K = np.log(K)
+    want, got = _both_dense(fn_name, a, b, K, 30, 0.0)
+    if fn_name == "sinkhorn":
+        assert np.all(want[:2] == 0.0)
+    else:
+        assert want[:2].min() > 1e-3
+    _close(got, want)
+
+
+def test_dense_subnormal_kernel_entries_follow_reference_flush():
+    """Kernel entries and products below the smallest normal count as 0 in
+    every matvec, ratio and test; a row of only subnormals is dead."""
+    a, b, rng = _dense(10, 8, seed=12)
+    K = np.exp(-rng.uniform(0, 100, (10, 8))).astype(np.float32)
+    K[0] = [1e-40, 5e-39, 1e-45, 1e-39, 2e-39, 1e-42, 3e-39, 1e-41]
+    K[2, :3] = [1e-30, 1e-20, 1e-19]
+    want, got = _both_dense("sinkhorn", a, b, K, 20, 0.0)
+    assert np.all(want[0] == 0.0)
+    assert not np.any((got != 0) & (np.abs(got) < FLT_MIN))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("fn_name", ["sinkhorn", "sinkhorn_log"])
+def test_dense_differentiable_refuses_tol_like_reference(fn_name):
+    a, b, _ = _dense(4, 3, seed=13)
+    K = np.ones((4, 3), np.float32)
+    with pytest.raises(ValueError, match="differentiable"):
+        getattr(jsk, fn_name)(jnp.asarray(a), jnp.asarray(b), jnp.asarray(K),
+                              5, differentiable=True, tol=1e-3)
+    with pytest.raises(ValueError, match="differentiable"):
+        getattr(sk, fn_name)(torch.from_numpy(a), torch.from_numpy(b),
+                             torch.from_numpy(K), 5, differentiable=True,
+                             tol=1e-3)
+    got = getattr(sk, fn_name)(torch.from_numpy(a), torch.from_numpy(b),
+                               torch.from_numpy(K), 5, differentiable=True)
+    want = getattr(jsk, fn_name)(jnp.asarray(a), jnp.asarray(b),
+                                 jnp.asarray(K), 5, differentiable=True)
     _close(got, want)

@@ -56,16 +56,21 @@ def _moon(n, seed=0):
     return dist(x), weights(1 / 3), dist(y), weights(1 / 2)
 
 
-def _run_both(data, loss, **fields):
+def _run_both(data, loss, M=None, alpha=None, **fields):
     Cx, a, Cy, b = data
     n = max(len(a), len(b))
     js = repro.SparGWSolver(s=16 * n, **fields)
     jp = repro.QuadraticProblem(repro.Geometry(jnp.asarray(Cx), jnp.asarray(a)),
                                 repro.Geometry(jnp.asarray(Cy), jnp.asarray(b)),
-                                loss=loss)
+                                loss=loss, fused_penalty=alpha,
+                                M=None if M is None else jnp.asarray(M))
     jo = repro.solve(jp, js, key=jax.random.PRNGKey(0))
+    pp = interop.to_problem(Cx, a, Cy, b, loss)
+    if M is not None:
+        pp = repro_torch.QuadraticProblem(pp.geom_x, pp.geom_y, loss,
+                                          fused_penalty=alpha, M=M)
     po = repro_torch.solve(
-        interop.to_problem(Cx, a, Cy, b, loss),
+        pp,
         interop.to_solver({f.name: getattr(js, f.name)
                            for f in dataclasses.fields(js)}),
         support=interop.to_support(jo.coupling.rows, jo.coupling.cols),
@@ -113,6 +118,16 @@ def test_rescue_matches_reference(moon48, loss, reg, eps, code):
     jo, P = _run_both(moon48, loss, stable=False, reg=reg, epsilon=eps,
                       cost_impl="materialized")
     assert int(jo.status.n_rescues) > 0 and int(jo.status.code) == code
+    _assert_parity(jo, P)
+
+
+@pytest.mark.parametrize("loss", ["l2", "l1"])
+def test_fused_solve_matches_reference(moon48, loss):
+    """Fused GW (Alg. 4): C = α·(L ⊗ T) + (1-α)·M on the support, with a
+    numpy-seeded M and α = 0.7; the objective mixes both terms."""
+    M = np.random.default_rng(11).random((48, 48)).astype(np.float32)
+    jo, P = _run_both(moon48, loss, M=M, alpha=0.7)
+    assert int(jo.status.code) == repro.health.MAXITER
     _assert_parity(jo, P)
 
 
