@@ -26,11 +26,21 @@ Phases; any failure raises and exits non-zero with no result line:
    (``repro_torch.kernels.sinkhorn.ops.sinkhorn``) on the 181 x 181 K of
    the grid path's first stable=False prox step (the shared-memory
    kernel) and on a 2048 x 2048 K (the cooperative grid kernel);
-7. time every kernel at its path's shapes against its plain version,
-   its bound and, where one exists, one library call;
-8. trace one grid solve and one spar solve (gather-fused) on their
-   main-path supports with ``torch.profiler`` and print each one's wall
-   time, device-busy time, idle share and the kernels that take the most
+7. drive the LM main path: zamba2-7b at its published widths, weights
+   drawn on the card from a torch generator (the script imports no JAX).
+   First one float32 ``Model.forward`` at reduced depth (1 superblock and
+   the 3 tail layers) through the flash attention (K5) and SSD (K6)
+   kernels, held against the same forward through their plain versions;
+   then the full-depth (81 Mamba2 layers, 13 shared-block invocations)
+   bfloat16 ``Model.prefill(..., use_flash=True)`` at B = 1, S = 4096: K5
+   must launch 13 times and K6 81 times, the logits be finite; its wall
+   time (median after a warm-up), tokens/s and peak memory;
+8. time every kernel at its path's shapes against its plain version,
+   its bound and, where one exists, one library call (K5 also at
+   llama3-8b's attention shape);
+9. trace one grid solve, one spar solve (gather-fused) and one zamba2-7b
+   prefill with ``torch.profiler`` and print each one's wall time,
+   device-busy time, idle share and the kernels that take the most
    device time.
 
 The line before the last is the kernel JSON; the last line is
@@ -53,10 +63,13 @@ ROOT = Path(__file__).resolve().parent
 N_MAIN = 2048          # largest size select_solver routes to spar_gw
 N_SMALL = 300          # card-vs-CPU agreement check
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and fp32
-# (non-tensor-core) flop/s; the kernels' work is fp32 FMAs and gathers
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32
+# (non-tensor-core) flop/s and dense bf16 tensor-core flop/s. The GW
+# kernels' work is fp32 FMAs and gathers; flash attention on bf16 inputs is
+# bounded by the bf16 peak, whatever the kernel computes in
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 # fp32 operations per (k, l) pair of the fused kernel: the loss plus the
 # FMA (2). l1: sub, abs; l2: sub, mul; kl: 2 max, 2 log, sub, mul, sub, add
@@ -82,6 +95,32 @@ GW_COST_RTOL = 2e-4
 # in each matvec's summation order; rtol 1e-4 plus 1e-6 of the largest
 # coupling entry
 SINKHORN_RTOL, SINKHORN_ATOL_REL = 1e-4, 1e-6
+# flash attention kernel-vs-plain (float32 plain on the same inputs): a
+# score sums hd products and an output up to S terms, on each side, so
+# |err| <= 2·(S + hd^1.5)·2^-24 of Σ_t p_st·|v_t| (hd^1.5 bounds the
+# score's error scale for unit inputs); bf16 adds the output's rounding,
+# 2^-8 of |plain| (twice the half ulp)
+BF16_OUT_RTOL = 2.0 ** -8
+
+
+def attention_rtol(S: int, hd: int) -> float:
+    return 2 * (S + hd ** 1.5) * 2.0 ** -24
+
+
+# SSD kernel-vs-plain: a Gram entry sums N products and an output k terms,
+# on each side: |err| <= 2·(k + N + 8)·2^-24 of the output over |terms|
+def ssd_rtol(k: int, N: int) -> float:
+    return 2 * (k + N + 8) * 2.0 ** -24
+
+
+# the LM main path: zamba2-7b prefill at train_4k's sequence length
+LM_ARCH, LM_BATCH, LM_SEQ = "zamba2_7b", 1, 4096
+LM_PREFILL_REPS = 3
+# full-width, reduced-depth fp32 forward, kernels vs plain versions: the
+# two differ only in K5's and K6's summation order, carried through 10
+# blocks; the CPU parity tests hold the whole stack to 1e-4 of the
+# largest logit, and so does this
+LM_LOGIT_REL = 1e-4
 
 
 def moon(n: int, seed: int = 0):
@@ -137,10 +176,11 @@ def check(torch, name, got, want, scale, rtol=KERNEL_RTOL) -> float:
     return float(err.max())
 
 
-def bound(bytes_moved: float, ops: float) -> tuple:
-    """(bound_ms, bound_by): the larger of bytes over HBM rate and fp32
-    operations over the fp32 peak, and which of the two it is."""
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / FP32_FLOPS
+def bound(bytes_moved: float, ops: float, peak: float = FP32_FLOPS) -> tuple:
+    """(bound_ms, bound_by): the larger of bytes over HBM rate and
+    operations over ``peak`` (the fp32 peak unless given), and which of the
+    two it is."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -204,6 +244,15 @@ def profile_solve(torch, fn, top: int = 8) -> dict:
                     for us, c, k in rows[:top]]}
 
 
+def leaves(tree) -> list:
+    """The tensors of a nest of dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in leaves(v)]
+    return [tree]
+
+
 def main() -> int:
     import torch
 
@@ -215,14 +264,20 @@ def main() -> int:
     import repro_torch
     from repro_torch.api import solvers
     from repro_torch.api.solvers import GridGWSolver, SparGWSolver
+    from repro_torch.configs import get_arch, scale_down
     from repro_torch.core.grid_gw import grid_cost
     from repro_torch.core.utils import flush_subnormal
     from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import attention_error_scale
     from repro_torch.kernels.gw_cost import gw_cost
     from repro_torch.kernels.gw_cost import ref as gw_ref
     from repro_torch.kernels.sinkhorn import ops as sinkhorn_ops
     from repro_torch.kernels.sinkhorn import sinkhorn
     from repro_torch.kernels.spar_cost import ops, ref, spar_cost
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.ssd.ref import ssd_intra_error_scale
+    from repro_torch.models import Model
 
     dev = torch.device("cuda")
 
@@ -237,7 +292,8 @@ def main() -> int:
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
     reports = cuda_lib.build(["spar_matvec", "spar_cost_fused", "gw_cost",
-                              "sinkhorn_resident"])
+                              "sinkhorn_resident", "flash_attention",
+                              "ssd_intra"])
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(reports) or 'already built'})")
     for name, rep in reports.items():
@@ -287,6 +343,45 @@ def main() -> int:
         check_coupling(torch, f"{variant} {m}x{n}", got,
                        sinkhorn.sinkhorn_plain(a / a.sum(), b / b.sum(), Kr,
                                                30))
+
+    def check_attention(name, q, k, v, groups):
+        """K5 against its plain version in float32 on the same inputs, on
+        the flattened (B·H, S, hd) layout with B = 1; max abs error."""
+        got = fa.flash_attention_cuda(q, k, v, groups=groups).float()
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        want = fa.flash_attention_plain(q32, k32, v32, groups)
+        S, hd = q.shape[1], q.shape[2]
+        scale = attention_error_scale(q32.transpose(0, 1)[None],
+                                      k32.transpose(0, 1)[None],
+                                      v32.transpose(0, 1)[None])
+        tol = attention_rtol(S, hd) * scale[0].transpose(0, 1)
+        if q.dtype == torch.bfloat16:
+            tol = tol + BF16_OUT_RTOL * want.abs()
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        if not bool(torch.all(err <= tol)):
+            raise AssertionError(f"{name}: kernel disagrees with its plain "
+                                 f"version: max abs err {float(err.max()):.3g}")
+        return float(err.max())
+
+    def check_ssd(name, xdt, cs, Bm, Cm):
+        got = ssd.ssd_intra_cuda(xdt, cs, Bm, Cm)
+        return check(torch, name, got, ssd.ssd_intra_plain(xdt, cs, Bm, Cm),
+                     ssd_intra_error_scale(xdt, cs, Bm, Cm),
+                     rtol=ssd_rtol(xdt.shape[1], Bm.shape[-1]))
+
+    def normal(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    for hd in (112, 128):                 # S = 1000: a ragged last tile
+        for dtype in (torch.float32, torch.bfloat16):
+            check_attention(f"flash_attention S=1000 hd={hd} G=4 {dtype}",
+                            normal(8, 1000, hd, dtype=dtype),
+                            normal(2, 1000, hd, dtype=dtype),
+                            normal(2, 1000, hd, dtype=dtype), 4)
+    check_ssd("ssd_intra G=5 H=12", normal(5, 128, 12, 64),
+              -torch.cumsum(rand(5, 128, 12), dim=1), normal(5, 128, 64),
+              normal(5, 128, 64))
     print("kernel checks at ragged shapes: ok")
 
     # -- 4. the main path --------------------------------------------------
@@ -453,7 +548,109 @@ def main() -> int:
           f"-> sinkhorn_resident, {N_SINKHORN_LARGE}x{N_SINKHORN_LARGE} -> "
           f"sinkhorn_grid; both agree with the plain loop")
 
-    # -- 7. kernels at their paths' shapes ----------------------------------
+    # -- 7. the LM main path: zamba2-7b ------------------------------------
+    torch.cuda.empty_cache()
+    held_gib = torch.cuda.memory_allocated() / 2**30   # earlier phases' tensors
+    cfg = get_arch(LM_ARCH)
+    model = Model(cfg)
+    lm_gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(lm_gen, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaves(params))
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
+                           generator=lm_gen, device=dev)
+
+    def lm_counts():
+        torch.cuda.synchronize()
+        return {"flash_attention": fa.LAUNCHES["flash_attention"],
+                "ssd_intra": ssd.LAUNCHES["ssd_intra"]}
+
+    def reset_lm_counts():
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        ssd.reset_launch_counts()
+
+    # full width, reduced depth, float32: kernels against plain versions
+    short_cfg = scale_down(cfg, n_superblocks=1,
+                           n_layers=len(cfg.block_pattern)
+                           + len(cfg.tail_blocks))
+    short = Model(short_cfg)
+    short_params = {**params, "blocks": params["blocks"][:1]}
+    reset_lm_counts()
+    logits_k, _, _ = short.forward(short_params, tokens,
+                                   act_dtype=torch.float32, use_flash=True)
+    short_counts = lm_counts()
+    logits_p, _, _ = short.forward(short_params, tokens,
+                                   act_dtype=torch.float32, use_flash=True,
+                                   use_kernel=False)
+    if lm_counts() != short_counts:
+        raise AssertionError("the plain route launched a kernel")
+    short_err = float((logits_k - logits_p).abs().max()
+                      / logits_p.abs().max())
+    want_short = {"flash_attention": 1,
+                  "ssd_intra": len(short_cfg.block_pattern)
+                  + len(short_cfg.tail_blocks)}
+    if short_counts != want_short or not bool(logits_k.isfinite().all()) \
+            or short_err > LM_LOGIT_REL:
+        raise AssertionError(f"reduced-depth fp32 forward: launches "
+                             f"{short_counts} (expected {want_short}), "
+                             f"kernels vs plain max rel err {short_err:.3g}")
+    del logits_k, logits_p, short_params
+    torch.cuda.empty_cache()
+
+    # full depth, bfloat16 prefill: the main path
+    n_sb = cfg.resolved_superblocks
+    want_lm = {"flash_attention": n_sb,
+               "ssd_intra": n_sb * len(cfg.block_pattern)
+               + len(cfg.tail_blocks)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lm_base = torch.cuda.memory_allocated()
+    reset_lm_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, tokens, use_flash=True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    lm_launches = lm_counts()
+    if lm_launches != want_lm:
+        raise AssertionError(f"prefill launches {lm_launches}, expected "
+                             f"{want_lm}")
+    if not (bool(logits.isfinite().all())
+            and tuple(logits.shape) == (LM_BATCH, 1, cfg.vocab_size)):
+        raise AssertionError("prefill: non-finite or misshapen logits")
+    cache_leaves = leaves(cache)
+    if len(cache_leaves) != len(cfg.block_pattern) + 2 + len(
+            cfg.tail_blocks) or not all(bool(t.isfinite().all())
+                                        for t in cache_leaves):
+        raise AssertionError("prefill: malformed or non-finite cache")
+    del logits, cache, cache_leaves
+    walls = []
+    for _ in range(LM_PREFILL_REPS):
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, tokens, use_flash=True)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        del logits, cache
+    lm_peak_gib = (torch.cuda.max_memory_allocated() - lm_base) / 2**30
+    prefill_s = sorted(walls)[len(walls) // 2]
+    print(json.dumps({"lm_main_path": {
+        "arch": cfg.name, "batch": LM_BATCH, "seq_len": LM_SEQ,
+        "n_layers": cfg.n_layers, "n_params": n_params,
+        "act_dtype": "bfloat16", "use_flash": True, "init_s": init_s,
+        "earlier_phases_gib": held_gib,
+        "reduced_depth_fp32_logit_rel_err": short_err,
+        "reduced_depth_launches": short_counts,
+        "prefill_first_s": first_s, "prefill_walls_s": walls,
+        "prefill_median_s": prefill_s,
+        "tokens_per_s": LM_BATCH * LM_SEQ / prefill_s,
+        "peak_memory_gib_above_start": lm_peak_gib,
+        "params_gib": sum(t.numel() * t.element_size()
+                          for t in leaves(params)) / 2**30,
+        "launches": lm_launches}}))
+
+    # -- 8. kernels at their paths' shapes ----------------------------------
     rows, cols = support
     Cx, Cy = problem.geom_x.cost.to(dev), problem.geom_y.cost.to(dev)
     t = (-1.0 / auto.epsilon) * out_auto.coupling.vals     # the step's t
@@ -544,12 +741,73 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None})
 
-    # -- 8. where the time goes ---------------------------------------------
+    # flash attention at zamba2-7b's shape (the main path's) and, off the
+    # path, llama3-8b's attention shape; bf16, B = 1, S = 4096
+    import torch.nn.functional as F
+    other_shapes = []
+    for arch, H, K, hd in (("zamba2-7b", cfg.n_heads, cfg.n_kv_heads,
+                            cfg.resolved_head_dim), ("llama3-8b", 32, 8, 128)):
+        S = LM_SEQ
+        q = normal(H, S, hd, dtype=torch.bfloat16)
+        k = normal(K, S, hd, dtype=torch.bfloat16)
+        v = normal(K, S, hd, dtype=torch.bfloat16)
+        err = check_attention(f"flash_attention {arch} shape", q, k, v, H // K)
+        ms = time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, H // K),
+                     10)
+        plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, H // K), 3, warmup=1)
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True, enable_gqa=True), 10)
+        bound_ms, bound_by = bound(2 * (2 * H + 2 * K) * S * hd,
+                                   4 * H * hd * S * (S + 1) / 2, BF16_FLOPS)
+        row = {"name": "flash_attention", "route": "cuda",
+               "source": "src/repro_torch/csrc/flash_attention.cu",
+               "replaces": "src/repro/kernels/flash_attention/"
+                           "flash_attention.py:61",
+               "launches": lm_launches["flash_attention"],
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": lib_ms}
+        if arch == "zamba2-7b":
+            kernels.append(row)
+        else:
+            other_shapes.append({**row, "shape": f"{arch} B=1 S={S} H={H} "
+                                                 f"K={K} hd={hd} bf16",
+                                 "launches": None})
+        del q, k, v
+
+    # the SSD intra-chunk block at zamba2-7b's layer shape (B = 1, S = 4096)
+    Gc, kc = LM_BATCH * LM_SEQ // cfg.ssm_chunk, cfg.ssm_chunk
+    Hs, Ns = cfg.ssm_heads, cfg.ssm_state
+    Ps = cfg.ssm_expand * cfg.d_model // Hs
+    xdt, Bm, Cm = normal(Gc, kc, Hs, Ps), normal(Gc, kc, Ns), normal(Gc, kc, Ns)
+    cs = -torch.cumsum(rand(Gc, kc, Hs), dim=1)
+    err = check_ssd("ssd_intra zamba2-7b shape", xdt, cs, Bm, Cm)
+    ms = time_ms(torch, lambda: ssd.ssd_intra_cuda(xdt, cs, Bm, Cm), 20)
+    plain_ms = time_ms(torch, lambda: ssd.ssd_intra_plain(xdt, cs, Bm, Cm),
+                       5, warmup=1)
+    tri = kc * (kc + 1) / 2
+    bound_ms, bound_by = bound(
+        4 * (2 * xdt.numel() + cs.numel() + Bm.numel() + Cm.numel()),
+        Gc * tri * (2 * Ns + Hs * (2 * Ps + 3)))
+    kernels.append({
+        "name": "ssd_intra", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_intra.cu",
+        "replaces": "src/repro/kernels/ssd/ssd.py:43",
+        "launches": lm_launches["ssd_intra"], "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None})
+    del xdt, Bm, Cm, cs
+    print(json.dumps({"kernel_timings_off_path": other_shapes}))
+
+    # -- 9. where the time goes ---------------------------------------------
     print(json.dumps({"profile": {
         "grid": profile_solve(torch, lambda: repro_torch.solve(
             grid_problem, grid_solver, support=grid_support).value.item()),
         "spar_pallas": profile_solve(torch, lambda: repro_torch.solve(
-            problem, forced, support=support).value.item())}}))
+            problem, forced, support=support).value.item()),
+        "zamba2_prefill": profile_solve(torch, lambda: model.prefill(
+            params, tokens, use_flash=True)[0].sum().item(), top=12)}}))
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

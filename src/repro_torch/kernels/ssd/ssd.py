@@ -1,0 +1,73 @@
+"""CUDA kernel of the Mamba2 SSD intra-chunk block, its wrapper and plain
+version.
+
+``csrc/ssd_intra.cu`` replaces ``ssd_intra_pallas``: one block per (chunk,
+tile of 14 heads) forms C·Bᵀ once (in registers), then per head builds the
+masked decay block in shared memory (exp never formed for t > s) and
+multiplies it with xdt.
+
+A wrapper given CUDA tensors launches the kernel on the current stream or
+raises; given CPU tensors it runs the plain PyTorch version
+(:func:`ref.ssd_intra_ref`). ``LAUNCHES`` counts kernel launches (plain
+runs do not count).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.cuda_lib import check_tensor, raise_on
+from repro_torch.kernels.ssd.ref import ssd_intra_ref
+
+LAUNCHES = {"ssd_intra": 0}
+
+MAX_CHUNK = 128           # the kernel's Gram tiles cover k <= 128
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES["ssd_intra"] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = cuda_lib.load("ssd_intra")
+    lib.ssd_intra_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _P]
+    lib.ssd_intra_launch.restype = _I
+    return lib
+
+
+# the plain version of the kernel: the masked decay block and one einsum
+ssd_intra_plain = ssd_intra_ref
+
+
+def ssd_intra_cuda(xdt, cs, Bm, Cm):
+    """y (G, k, H, P) float32 from xdt (G, k, H, P), cs (G, k, H), Bm and Cm
+    (G, k, N), all float32 and contiguous. CUDA tensors launch the kernel
+    (k <= 128; its shared memory grows with P, and a P that does not fit a
+    block fails the launch); CPU tensors take :func:`ssd_intra_plain`.
+    """
+    if not xdt.is_cuda:
+        return ssd_intra_plain(xdt, cs, Bm, Cm)
+    G, k, H, P = xdt.shape
+    N = Bm.shape[-1]
+    dev = xdt.device
+    check_tensor("xdt", xdt, (G, k, H, P), torch.float32, dev)
+    check_tensor("cs", cs, (G, k, H), torch.float32, dev)
+    check_tensor("Bm", Bm, (G, k, N), torch.float32, dev)
+    check_tensor("Cm", Cm, (G, k, N), torch.float32, dev)
+    if k > MAX_CHUNK:
+        raise ValueError(f"ssd_intra: chunk length {k} > {MAX_CHUNK}")
+    y = torch.empty_like(xdt)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    raise_on(_lib().ssd_intra_launch(xdt.data_ptr(), cs.data_ptr(),
+                                     Bm.data_ptr(), Cm.data_ptr(),
+                                     y.data_ptr(), G, k, H, P, N, stream),
+             "ssd_intra")
+    LAUNCHES["ssd_intra"] += 1
+    return y

@@ -21,6 +21,17 @@ Tolerances, kernel against plain version:
   entry. Kernel and plain version flush the same subnormals and differ
   only in the order of each matvec's sum, which the iterations carry
   along but do not amplify.
+* flash attention (K5), against the plain version in float32 on the same
+  (bf16-valued) inputs: |kernel - plain| <= 2·(S + hd^1.5)·2⁻²⁴ · scale,
+  scale = Σ_t p_st·|v_t| (``attention_error_scale``): a score sums hd
+  products (its error, up to hd·2⁻²⁴·Σ|q_d k_d|/√hd ≲ hd^1.5·2⁻²⁴ for
+  unit inputs, scales p) and an output sums up to S terms, on each side.
+  bf16 adds the output's rounding: 2⁻⁸·|plain| (twice the half ulp).
+* SSD intra-chunk (K6): |kernel - plain| <= 2·(k + N + 8)·2⁻²⁴ · scale,
+  scale = the output over absolute values (``ssd_intra_error_scale``): the
+  Gram entry sums N products and the output k terms, on each side.
+* the reduced models on the card against the CPU path: max error 1e-4 of
+  the largest logit, as in the CPU parity tests of the whole stack.
 """
 import numpy as np
 import pytest
@@ -29,10 +40,16 @@ import torch
 import repro_torch
 from repro_torch.api import interop
 from repro_torch.api.solvers import GridGWSolver, SparGWSolver
+from repro_torch.configs import get_reduced
+from repro_torch.kernels.flash_attention import flash_attention as fa
+from repro_torch.kernels.flash_attention.ref import attention_error_scale
 from repro_torch.kernels.gw_cost import gw_cost
 from repro_torch.kernels.gw_cost import ref as gw_ref
 from repro_torch.kernels.sinkhorn import sinkhorn
 from repro_torch.kernels.spar_cost import ref, spar_cost
+from repro_torch.kernels.ssd import ssd
+from repro_torch.kernels.ssd.ref import ssd_intra_error_scale
+from repro_torch.models import Model
 
 pytestmark = pytest.mark.cuda
 RTOL_SCALE = 1e-4
@@ -248,3 +265,138 @@ def test_grid_solve_on_card_matches_cpu(dev, stable):
                                atol=1e-6)
     assert gpu["status"]["code"] == cpu["status"]["code"]
     assert gpu["n_iters"] == cpu["n_iters"]
+
+
+def _normal(shape, seed, dev, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                        device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("B,S,H,K,hd", [
+    (1, 1, 4, 1, 16), (2, 200, 4, 4, 16), (2, 77, 8, 2, 128),
+    (1, 1000, 8, 2, 112), (1, 333, 8, 8, 128), (1, 64, 2, 2, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(dev, B, S, H, K, hd, dtype):
+    """Ragged S and last tiles, G = 1, 2 and 4, hd from 5 to 128."""
+    q = _normal((B * H, S, hd), 0, dev, dtype)
+    k = _normal((B * K, S, hd), 1, dev, dtype)
+    v = _normal((B * K, S, hd), 2, dev, dtype)
+    fa.reset_launch_counts()
+    got = fa.flash_attention_cuda(q, k, v, groups=H // K)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 1 and got.dtype == dtype
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    want = fa.flash_attention_plain(q32, k32, v32, groups=H // K)
+
+    def heads(x, n):                  # (B·n, S, hd) -> (B, S, n, hd)
+        return x.reshape(B, n, S, hd).transpose(1, 2)
+    scale = attention_error_scale(heads(q32, H), heads(k32, K),
+                                  heads(v32, K))
+    scale = scale.transpose(1, 2).reshape(B * H, S, hd)
+    tol = 2 * (S + hd ** 1.5) * 2.0 ** -24 * scale
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -8 * want.abs()
+    assert torch.all((got.float() - want).abs() <= tol)
+
+
+def test_flash_attention_input_checks(dev):
+    q = _normal((4, 16, 8), 0, dev)
+    fa.reset_launch_counts()
+    with pytest.raises(TypeError):
+        fa.flash_attention_cuda(q.half(), q.half(), q.half(), groups=1)
+    with pytest.raises(ValueError, match="head_dim"):
+        big = _normal((4, 16, 160), 0, dev)
+        fa.flash_attention_cuda(big, big, big, groups=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        qt = _normal((4, 8, 16), 0, dev).transpose(1, 2)
+        fa.flash_attention_cuda(qt, qt, qt, groups=1)
+    with pytest.raises(ValueError, match="groups"):
+        fa.flash_attention_cuda(q, q[:3], q[:3], groups=2)
+    assert fa.LAUNCHES["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("G,k,H,P,N,offset", [
+    (5, 128, 12, 64, 64, 0), (3, 100, 9, 30, 17, 0), (2, 128, 1, 64, 70, 0),
+    (4, 8, 4, 32, 16, 0), (1, 1, 1, 1, 1, 0), (3, 128, 30, 64, 64, 0),
+    (2, 64, 15, 12, 8, 1)])
+def test_ssd_intra_matches_plain(dev, G, k, H, P, N, offset):
+    """Ragged G and H (head tiles of 14), k < 128, P not a multiple of 4 or
+    8, N over several staged chunks of 32, and an xdt that starts 4 bytes
+    past a 16-byte boundary (read without 16-byte loads)."""
+    rng = np.random.default_rng(G * k + H)
+    size = G * k * H * P
+    xdt = _normal((size + offset,), 3, dev)[offset:].view(G, k, H, P)
+    cs = -torch.tensor(np.cumsum(rng.random((G, k, H)), axis=1),
+                       dtype=torch.float32, device=dev)
+    Bm, Cm = _normal((G, k, N), 4, dev), _normal((G, k, N), 5, dev)
+    ssd.reset_launch_counts()
+    got = ssd.ssd_intra_cuda(xdt, cs, Bm, Cm)
+    torch.cuda.synchronize()
+    assert ssd.LAUNCHES["ssd_intra"] == 1
+    want = ssd.ssd_intra_plain(xdt, cs, Bm, Cm)
+    scale = ssd_intra_error_scale(xdt, cs, Bm, Cm)
+    assert torch.all((got - want).abs()
+                     <= 2 * (k + N + 8) * 2.0 ** -24 * scale)
+
+
+def test_ssd_intra_never_forms_the_masked_decay(dev):
+    """cs falling by 100 per step: exp(cs_s - cs_t) = exp(100 (t - s))
+    overflows in float32 for t > s. The kernel never evaluates it there;
+    the output stays finite, and exp(-100) leaves only t == s."""
+    G, k, H, P, N = 2, 128, 3, 16, 8
+    cs = -100.0 * torch.arange(k, dtype=torch.float32, device=dev)
+    cs = cs[None, :, None].expand(G, k, H).contiguous()
+    xdt, Bm, Cm = (_normal(s, i, dev) for i, s in
+                   enumerate(((G, k, H, P), (G, k, N), (G, k, N))))
+    got = ssd.ssd_intra_cuda(xdt, cs, Bm, Cm)
+    assert torch.isfinite(got).all()
+    Gm = (Cm * Bm).sum(-1)                       # only t == s survives
+    torch.testing.assert_close(got, Gm[:, :, None, None] * xdt, rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_ssd_intra_input_checks(dev):
+    x = _normal((1, 129, 2, 8), 0, dev)
+    cs, B = _normal((1, 129, 2), 1, dev), _normal((1, 129, 4), 2, dev)
+    ssd.reset_launch_counts()
+    with pytest.raises(ValueError, match="chunk"):
+        ssd.ssd_intra_cuda(x, cs, B, B)
+    with pytest.raises(TypeError):
+        ssd.ssd_intra_cuda(x[:, :8].double(), cs[:, :8].contiguous(),
+                           B[:, :8].contiguous(), B[:, :8].contiguous())
+    assert ssd.LAUNCHES["ssd_intra"] == 0
+
+
+@pytest.mark.parametrize("name", ["zamba2_7b", "llama3_8b"])
+def test_reduced_model_on_card_matches_cpu(dev, name):
+    """The reduced models' fp32 forward and prefill on the card, through
+    K5 and K6, against the CPU path (plain versions) on the same weights;
+    then the bf16 prefill on the card is finite."""
+    cfg = get_reduced(name)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64)))
+    n_sb = cfg.resolved_superblocks
+    n_attn = n_sb if cfg.shared_block_every else n_sb * len(cfg.block_pattern)
+    n_ssd = sum(k == "mamba2" for k in cfg.block_pattern) * n_sb + len(
+        cfg.tail_blocks)
+    want, _, _ = model.forward(params, toks, use_flash=True, device="cpu")
+    fa.reset_launch_counts()
+    ssd.reset_launch_counts()
+    got, hidden, _ = model.forward(params, toks, use_flash=True, device=dev)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == n_attn
+    assert ssd.LAUNCHES["ssd_intra"] == n_ssd
+    assert got.is_cuda and hidden.is_cuda
+    err = (got.cpu() - want).abs().max() / want.abs().max()
+    assert err <= 1e-4
+    plain, _, _ = model.forward(params, toks, use_flash=True,
+                                use_kernel=False, device=dev)
+    assert fa.LAUNCHES["flash_attention"] == n_attn      # no more launches
+    assert ssd.LAUNCHES["ssd_intra"] == n_ssd
+    assert (plain - got).abs().max() / got.abs().max() <= 1e-4
+    logits, cache = model.prefill(params, toks, use_flash=True, device=dev)
+    assert torch.isfinite(logits).all() and logits.shape == (
+        2, 1, cfg.vocab_size)
