@@ -7,8 +7,11 @@ Phases; any failure raises and exits non-zero with no result line:
 
 1. require a CUDA card; print its name and power limit (nvidia-smi);
 2. build the CUDA kernels from src/repro_torch/csrc with nvcc (all
-   sources at once) and print the build time and the ptxas report;
-3. hold each kernel against its plain PyTorch version at ragged shapes;
+   sources at once) and print the build time and the ptxas report; check
+   that the flash attention library's SASS holds HGMMA (tensor cores);
+3. hold each kernel against its plain PyTorch version at ragged shapes
+   (the gather-fused kernel also on a support sorted by row, as the
+   main path runs it);
 4. drive the spar main path: ``repro_torch.solve`` with auto-selection
    on an n = 2048 Moon pair (spar_gw, s = 16n = 32768, cost_impl "auto"
    = the materialized matvec kernel), then the same support with the
@@ -33,8 +36,10 @@ Phases; any failure raises and exits non-zero with no result line:
    kernels, held against the same forward through their plain versions;
    then the full-depth (81 Mamba2 layers, 13 shared-block invocations)
    bfloat16 ``Model.prefill(..., use_flash=True)`` at B = 1, S = 4096: K5
-   must launch 13 times and K6 81 times, the logits be finite; its wall
-   time (median after a warm-up), tokens/s and peak memory;
+   must launch 13 times and K6 81 times, the logits be finite; K5 is held
+   against its plain version on the q, k, v of the first shared-block
+   invocation; the prefill's wall time (median after a warm-up), tokens/s
+   and peak memory;
 8. time every kernel at its path's shapes against its plain version,
    its bound and, where one exists, one library call (K5 also at
    llama3-8b's attention shape);
@@ -52,6 +57,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -99,8 +105,12 @@ SINKHORN_RTOL, SINKHORN_ATOL_REL = 1e-4, 1e-6
 # score sums hd products and an output up to S terms, on each side, so
 # |err| <= 2·(S + hd^1.5)·2^-24 of Σ_t p_st·|v_t| (hd^1.5 bounds the
 # score's error scale for unit inputs); bf16 adds the output's rounding,
-# 2^-8 of |plain| (twice the half ulp)
+# 2^-8 of |plain| (twice the half ulp), and the rounding of P to bf16 for
+# the tensor cores' PV product: each p_st is off by at most 2^-9 of itself
+# (half a bf16 ulp) while l sums the unrounded p, so the output moves by at
+# most 2^-9·Σ_t p_st·|v_t|; the bound takes twice that, 2^-8 of the scale
 BF16_OUT_RTOL = 2.0 ** -8
+BF16_P_RTOL = 2.0 ** -8
 
 
 def attention_rtol(S: int, hd: int) -> float:
@@ -267,8 +277,9 @@ def main() -> int:
     from repro_torch.configs import get_arch, scale_down
     from repro_torch.core.grid_gw import grid_cost
     from repro_torch.core.utils import flush_subnormal
-    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels import cuda_lib, dispatch
     from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_error_scale
     from repro_torch.kernels.gw_cost import gw_cost
     from repro_torch.kernels.gw_cost import ref as gw_ref
@@ -302,6 +313,17 @@ def main() -> int:
                                          or "Compiling" in line):
                 print(f"  {name}: {line.strip()}")
 
+    # the bf16 attention kernel must run on the tensor cores (wgmma)
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(cuda_lib.library_path("flash_attention"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    n_hgmma = sass.count("HGMMA")
+    if not n_hgmma:
+        raise AssertionError("flash_attention: no HGMMA in the library's SASS")
+    print(f"flash_attention SASS: {n_hgmma} HGMMA instructions")
+
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def rand(*shape, lo=0.0):
@@ -318,12 +340,17 @@ def main() -> int:
     rows = torch.randint(0, m, (s,), generator=gen, device=dev)
     cols = torch.randint(0, n, (s,), generator=gen, device=dev)
     rows[-700:], cols[-700:] = rows[:700], cols[:700]     # duplicate pairs
+    perm, rows_s, cols_s = ops.sort_support(rows, cols)
     for loss in ("l1", "l2", "kl"):
+        want = spar_cost.spar_cost_plain(Cx, Cy, rows, cols, t, off, loss)
+        scale = ref.spar_cost_error_scale(Cx, Cy, rows, cols, t, off, loss)
         check(torch, f"spar_cost_fused {loss} s=3001",
               spar_cost.spar_cost_cuda(Cx, Cy, rows.int(), cols.int(), t, off,
-                                       loss=loss),
-              spar_cost.spar_cost_plain(Cx, Cy, rows, cols, t, off, loss),
-              ref.spar_cost_error_scale(Cx, Cy, rows, cols, t, off, loss))
+                                       loss=loss), want, scale)
+        check(torch, f"spar_cost_fused {loss} s=3001 sorted by row",
+              spar_cost.launch_fused(Cx, Cy, rows_s.int(), cols_s.int(),
+                                     t[perm], off, loss, 256,
+                                     perm=perm.int()), want, scale)
     del L, Cx, Cy
     A, B = rand(177, 93, lo=0.05), rand(131, 205, lo=0.05)
     Tg = rand(93, 205)
@@ -354,9 +381,10 @@ def main() -> int:
         scale = attention_error_scale(q32.transpose(0, 1)[None],
                                       k32.transpose(0, 1)[None],
                                       v32.transpose(0, 1)[None])
-        tol = attention_rtol(S, hd) * scale[0].transpose(0, 1)
+        scale = scale[0].transpose(0, 1)
+        tol = attention_rtol(S, hd) * scale
         if q.dtype == torch.bfloat16:
-            tol = tol + BF16_OUT_RTOL * want.abs()
+            tol = tol + BF16_OUT_RTOL * want.abs() + BF16_P_RTOL * scale
         torch.cuda.synchronize()
         err = (got - want).abs()
         if not bool(torch.all(err <= tol)):
@@ -605,14 +633,27 @@ def main() -> int:
     want_lm = {"flash_attention": n_sb,
                "ssd_intra": n_sb * len(cfg.block_pattern)
                + len(cfg.tail_blocks)}
+    # the first (cold) prefill also keeps a copy of q, k, v of the first
+    # shared-block invocation: K5 is held against its plain version on
+    # those real activations below
+    captured = []
+    launch_k5 = fa_ops.flash_attention_cuda
+
+    def capture_first(q, k, v, groups):
+        if not captured:
+            captured.append((q.clone(), k.clone(), v.clone(), groups))
+        return launch_k5(q, k, v, groups)
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     lm_base = torch.cuda.memory_allocated()
     reset_lm_counts()
+    fa_ops.flash_attention_cuda = capture_first
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, tokens, use_flash=True)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    fa_ops.flash_attention_cuda = launch_k5
     lm_launches = lm_counts()
     if lm_launches != want_lm:
         raise AssertionError(f"prefill launches {lm_launches}, expected "
@@ -635,6 +676,13 @@ def main() -> int:
         del logits, cache
     lm_peak_gib = (torch.cuda.max_memory_allocated() - lm_base) / 2**30
     prefill_s = sorted(walls)[len(walls) // 2]
+    # after the peak is read: the plain version forms every score
+    q_act, k_act, v_act, g_act = captured.pop()
+    if q_act.dtype != torch.bfloat16:
+        raise AssertionError(f"prefill attention ran in {q_act.dtype}")
+    act_err = check_attention("flash_attention on the prefill's first "
+                              "shared-block q, k, v", q_act, k_act, v_act,
+                              g_act)
     print(json.dumps({"lm_main_path": {
         "arch": cfg.name, "batch": LM_BATCH, "seq_len": LM_SEQ,
         "n_layers": cfg.n_layers, "n_params": n_params,
@@ -642,6 +690,11 @@ def main() -> int:
         "earlier_phases_gib": held_gib,
         "reduced_depth_fp32_logit_rel_err": short_err,
         "reduced_depth_launches": short_counts,
+        "k5_on_prefill_activations": {
+            "shape": list(q_act.shape), "groups": g_act,
+            "max_abs_err": act_err,
+            "max_abs_out": float(fa.flash_attention_plain(
+                q_act, k_act, v_act, g_act).float().abs().max())},
         "prefill_first_s": first_s, "prefill_walls_s": walls,
         "prefill_median_s": prefill_s,
         "tokens_per_s": LM_BATCH * LM_SEQ / prefill_s,
@@ -678,18 +731,33 @@ def main() -> int:
     del Lmat
     torch.cuda.empty_cache()
 
-    rows32, cols32 = rows.int().contiguous(), cols.int().contiguous()
+    # as the main path calls it: the support sorted by row once, t in the
+    # sorted order, outputs scattered back through the permutation
+    perm, rows_s, cols_s = ops.sort_support(rows, cols)
+    rows_s, cols_s = rows_s.int().contiguous(), cols_s.int().contiguous()
+    perm32, t_s = perm.int().contiguous(), t[perm].contiguous()
+    threads = dispatch.block_size("spar_cost_fused")
+    want = spar_cost.spar_cost_plain(Cx, Cy, rows, cols, t, off, problem.loss)
+    scale = ref.spar_cost_error_scale(Cx, Cy, rows, cols, t, off,
+                                      problem.loss)
     err = check(torch, "spar_cost_fused main shape",
-                spar_cost.spar_cost_cuda(Cx, Cy, rows32, cols32, t, off,
-                                         loss=problem.loss),
-                spar_cost.spar_cost_plain(Cx, Cy, rows, cols, t, off,
-                                          problem.loss),
-                ref.spar_cost_error_scale(Cx, Cy, rows, cols, t, off,
-                                          problem.loss))
-    ms = time_ms(torch, lambda: spar_cost.spar_cost_cuda(
-        Cx, Cy, rows32, cols32, t, off, loss=problem.loss), 10)
+                spar_cost.launch_fused(Cx, Cy, rows_s, cols_s, t_s, off,
+                                       problem.loss, threads, perm=perm32),
+                want, scale)
+    ms = time_ms(torch, lambda: spar_cost.launch_fused(
+        Cx, Cy, rows_s, cols_s, t_s, off, problem.loss, threads,
+        perm=perm32), 10)
     plain_ms = time_ms(torch, lambda: spar_cost.spar_cost_plain(
         Cx, Cy, rows, cols, t, off, problem.loss), 3, warmup=1)
+    # off the path: the support in its sampled order (no Cx broadcasts)
+    rows32, cols32 = rows.int().contiguous(), cols.int().contiguous()
+    err_unsorted = check(torch, "spar_cost_fused main shape, unsorted",
+                         spar_cost.spar_cost_cuda(Cx, Cy, rows32, cols32, t,
+                                                  off, loss=problem.loss),
+                         want, scale)
+    unsorted_ms = time_ms(torch, lambda: spar_cost.spar_cost_cuda(
+        Cx, Cy, rows32, cols32, t, off, loss=problem.loss), 10)
+    del want, scale
     bound_ms, bound_by = bound(
         4 * (N_MAIN * N_MAIN * 2 + 5 * s_main),
         FUSED_OPS_PER_PAIR[problem.loss] * s_main * s_main)
@@ -700,6 +768,10 @@ def main() -> int:
         "launches": launches["spar_cost_fused"], "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None})
+    other_shapes = [{**kernels[-1], "ms": unsorted_ms, "launches": None,
+                     "max_abs_err": err_unsorted,
+                     "shape": f"n={N_MAIN} s={s_main} {problem.loss}, "
+                              f"support in sampled order"}]
     del Cx, Cy
     torch.cuda.empty_cache()
 
@@ -744,7 +816,6 @@ def main() -> int:
     # flash attention at zamba2-7b's shape (the main path's) and, off the
     # path, llama3-8b's attention shape; bf16, B = 1, S = 4096
     import torch.nn.functional as F
-    other_shapes = []
     for arch, H, K, hd in (("zamba2-7b", cfg.n_heads, cfg.n_kv_heads,
                             cfg.resolved_head_dim), ("llama3-8b", 32, 8, 128)):
         S = LM_SEQ

@@ -1,10 +1,14 @@
 """CUDA kernel of causal GQA flash attention, its wrapper and plain version.
 
-``csrc/flash_attention.cu`` replaces ``flash_attention_pallas``: one block
-per (batch·head, tile of 64 query rows) walks the key/value tiles up to the
-diagonal with the online softmax in float32 registers, and masks a ragged
-S itself. (The reference's grid of ``S // bq`` tiles never writes the rows
-past the last whole tile; the kernel writes every row.)
+``csrc/flash_attention.cu`` replaces ``flash_attention_pallas``. bfloat16
+inputs (the LM main path) run on the tensor cores: one block of two
+warpgroups per (batch·head, tile of 128 query rows) walks the key/value
+tiles up to the diagonal, S = QKᵀ and O += PV as ``wgmma`` products with
+the online softmax on the fp32 accumulators in registers and P rounded to
+bfloat16 for the second product. float32 inputs run the fp32 SIMT kernel
+(64 query rows per block). Both mask a ragged S themselves. (The
+reference's grid of ``S // bq`` tiles never writes the rows past the last
+whole tile; the kernels write every row.)
 
 A wrapper given CUDA tensors launches the kernel on the current stream or
 raises; given CPU tensors it runs the plain PyTorch version
@@ -24,7 +28,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 LAUNCHES = {"flash_attention": 0}
 
-MAX_HEAD_DIM = 128        # the kernel's register tiles hold hd <= 128
+MAX_HEAD_DIM = 128        # the kernels' register tiles hold hd <= 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int

@@ -6,7 +6,10 @@ Three interchangeable implementations of the affine contract
 - ``"jnp"``          — the plain row-chunked version (``ref.spar_cost_ref``);
                        gathers (chunk, s) support blocks every call.
 - ``"pallas"``       — the gather-fused kernel (``spar_cost_cuda``); no
-                       (s, s) storage. On CPU tensors, its plain version.
+                       (s, s) storage. The closure sorts the support by
+                       row once (:func:`sort_support`) and the kernel
+                       scatters its outputs back. On CPU tensors, its
+                       plain version on the same sorted support.
 - ``"materialized"`` — the iteration-invariant loss matrix is built once
                        (O(s²) device memory, budget-gated) and every call
                        is the matvec kernel (``spar_matvec_cuda``). On CPU
@@ -25,13 +28,21 @@ import torch
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.spar_cost.ref import materialize_loss, spar_cost_ref
 from repro_torch.kernels.spar_cost.spar_cost import (
+    check_support_range,
+    check_threads,
+    launch_fused,
     spar_cost_cuda,
     spar_matvec_cuda,
 )
 
 dispatch.register("spar_cost", default_block=256,
                   description="COO cost assembly (SPAR-GW hot path); block "
-                              "= CUDA threads per block, one warp per row")
+                              "= CUDA threads per block of the matvec "
+                              "kernel, one warp per row")
+dispatch.register("spar_cost_fused", default_block=1024,
+                  description="gather-fused COO cost; block = CUDA threads "
+                              "per block (one block per SM holds its rows "
+                              "in shared memory, so all 32 warps stream)")
 
 
 def resolve_impl(impl: str, s: int, device) -> str:
@@ -49,11 +60,20 @@ def _vec(x, s: int, device):
     return x.expand(s).contiguous() if x.ndim == 0 else x.contiguous()
 
 
+def sort_support(rows, cols):
+    """The support ordered by row: ``(perm, rows[perm], cols[perm])`` with
+    ``perm`` (int64) a stable argsort of ``rows``. Entry k of the sorted
+    support is entry ``perm[k]`` of the original, so an output computed on
+    it is scattered back with ``out[perm] = out_sorted``."""
+    perm = torch.argsort(rows, stable=True)
+    return perm, rows[perm], cols[perm]
+
+
 def spar_cost_fused(Cx, Cy, rows, cols, t, off=0.0, loss: str = "l2",
                     block: Optional[int] = None):
     """One-shot gather-fused cost: L @ t + off on the COO support, (s,)."""
     s, dev = rows.shape[0], rows.device
-    b = dispatch.block_size("spar_cost", block)
+    b = dispatch.block_size("spar_cost_fused", block)
     return spar_cost_cuda(Cx.float().contiguous(), Cy.float().contiguous(),
                           rows.int().contiguous(), cols.int().contiguous(),
                           _vec(t, s, dev), _vec(off, s, dev), loss=loss,
@@ -85,17 +105,26 @@ def make_spar_cost_fn(Cx, Cy, rows, cols, loss: str, impl: str = "auto",
             return spar_cost_ref(Cx, Cy, rows, cols, t, loss, chunk) + off
         return fn
 
-    b = dispatch.block_size("spar_cost", block)
     if impl == "pallas":
+        b = dispatch.block_size("spar_cost_fused", block)
+        # once per support: the index range check (one host sync) and the
+        # sort by row; every call then gathers t into the sorted order and
+        # launches without a sync, the kernel scattering its outputs back
         Cxc, Cyc = Cx.float().contiguous(), Cy.float().contiguous()
-        rows32, cols32 = rows.int().contiguous(), cols.int().contiguous()
+        check_threads(b)
+        check_support_range(rows, cols, Cxc.shape[0], Cyc.shape[0])
+        perm, rows_s, cols_s = sort_support(rows, cols)
+        rows_s, cols_s = rows_s.int().contiguous(), cols_s.int().contiguous()
+        perm32 = perm.int().contiguous()
 
         def fn(t, off=0.0):
-            return spar_cost_cuda(Cxc, Cyc, rows32, cols32, _vec(t, s, dev),
-                                  _vec(off, s, dev), loss=loss, threads=b)
+            t_s = _vec(t, s, dev).index_select(0, perm)
+            return launch_fused(Cxc, Cyc, rows_s, cols_s, t_s,
+                                _vec(off, s, dev), loss, b, perm=perm32)
         return fn
 
     if impl == "materialized":
+        b = dispatch.block_size("spar_cost", block)
         # the gate bounds the resident s² matrix; the one-shot gather also
         # needs a ~3·s² transient (Gx, Gy, result), so past that build it
         # in row chunks with an O(chunk·s) transient

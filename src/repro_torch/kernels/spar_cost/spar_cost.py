@@ -9,7 +9,11 @@ compute the affine form ``out = L-matvec(t) + off`` with fp32 accumulation
 (callers pre-scale ``t`` and fold the log terms into ``off``):
 
 - :func:`spar_cost_cuda` — gather-fused (``csrc/spar_cost_fused.cu``,
-  replaces ``spar_cost_pallas``); no (s, s) storage.
+  replaces ``spar_cost_pallas``); no (s, s) storage. A block stages the
+  Cx/Cy rows of a group of outputs in shared memory and streams the
+  support past them; ``ops.make_spar_cost_fn`` sorts the support by row
+  once so that the stream's Cx gathers are broadcasts, and passes the
+  permutation that scatters the outputs back (``perm``).
 - :func:`spar_matvec_cuda` — materialized-support matvec
   (``csrc/spar_matvec.cu``, replaces ``spar_matvec_pallas``) over the
   iteration-invariant loss matrix.
@@ -48,14 +52,27 @@ def _matvec_fn():
 
 
 @functools.lru_cache(maxsize=None)
-def _fused_fn():
-    fn = cuda_lib.load("spar_cost_fused").spar_cost_fused_launch
-    fn.argtypes = [_P, _LL, _P, _LL, _P, _P, _P, _P, _P, _LL, _I, _I, _P]
-    fn.restype = _I
-    return fn
+def _fused_lib():
+    lib = cuda_lib.load("spar_cost_fused")
+    lib.spar_cost_fused_launch.argtypes = [_P, _LL, _P, _LL, _P, _P, _P, _P,
+                                           _P, _P, _LL, _I, _I, _P]
+    lib.spar_cost_fused_launch.restype = _I
+    lib.spar_cost_fused_rows_per_block.argtypes = [_LL, _LL, _LL, _I]
+    lib.spar_cost_fused_rows_per_block.restype = _I
+    return lib
 
 
-def _check_threads(threads: int):
+def fused_rows_per_block(m: int, n: int, s: int, threads: int = 1024) -> int:
+    """Outputs per block of the fused kernel's shared-memory rows path at
+    this shape on the current card; 0 where (m + n) floats do not fit in a
+    block's shared memory and the kernel reads the rows through L1/L2."""
+    g = _fused_lib().spar_cost_fused_rows_per_block(m, n, s, threads)
+    if g < 0:
+        raise RuntimeError("spar_cost_fused: could not query the device")
+    return g
+
+
+def check_threads(threads: int):
     if threads <= 0 or threads % 32 or threads > 1024:
         raise ValueError(f"threads per block must be a multiple of 32 in "
                          f"[32, 1024], got {threads}")
@@ -79,7 +96,7 @@ def spar_matvec_cuda(Lmat, t, off, threads: int = 256):
     check_tensor("Lmat", Lmat, (s, s), torch.float32, dev)
     check_tensor("t", t, (s,), torch.float32, dev)
     check_tensor("off", off, (s,), torch.float32, dev)
-    _check_threads(threads)
+    check_threads(threads)
     out = torch.empty(s, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     raise_on(_matvec_fn()(Lmat.data_ptr(), t.data_ptr(), off.data_ptr(),
@@ -89,13 +106,22 @@ def spar_matvec_cuda(Lmat, t, off, threads: int = 256):
 
 
 def spar_cost_plain(Cx, Cy, rows, cols, t, off, loss: str,
-                    chunk: int = 1024):
-    """Plain version of the fused kernel: row-chunked L-matvec + off."""
-    return spar_cost_ref(Cx, Cy, rows, cols, t, loss, chunk) + off
+                    chunk: int = 1024, perm=None):
+    """Plain version of the fused kernel: row-chunked L-matvec + off.
+
+    With ``perm``, the support (rows, cols, t) is in the kernel's order and
+    output k goes to ``perm[k]`` with ``off[perm[k]]`` added, as in the
+    kernel."""
+    if perm is None:
+        return spar_cost_ref(Cx, Cy, rows, cols, t, loss, chunk) + off
+    perm = perm.long()
+    out = torch.empty_like(off)
+    out[perm] = spar_cost_ref(Cx, Cy, rows, cols, t, loss, chunk) + off[perm]
+    return out
 
 
 def spar_cost_cuda(Cx, Cy, rows, cols, t, off, loss: str = "l2",
-                   threads: int = 256):
+                   threads: int = 1024):
     """Gather-fused out = L(Cx[rows][:, rows], Cy[cols][:, cols]) @ t + off.
 
     Cx (m, m), Cy (n, n), t and off (s,) float32; rows and cols (s,) int32
@@ -114,21 +140,41 @@ def spar_cost_cuda(Cx, Cy, rows, cols, t, off, loss: str = "l2",
     check_tensor("cols", cols, (s,), torch.int32, dev)
     check_tensor("t", t, (s,), torch.float32, dev)
     check_tensor("off", off, (s,), torch.float32, dev)
-    _check_threads(threads)
-    if s:   # the kernel reads Cx/Cy at these indices: keep them in range
-        lo_r, hi_r = torch.aminmax(rows)
-        lo_c, hi_c = torch.aminmax(cols)
-        lo_r, hi_r, lo_c, hi_c = torch.stack(
-            [lo_r, hi_r, lo_c, hi_c]).tolist()
-        if lo_r < 0 or hi_r >= m or lo_c < 0 or hi_c >= n:
-            raise IndexError(f"support indices out of range: rows in "
-                             f"[{lo_r}, {hi_r}] for m={m}, cols in "
-                             f"[{lo_c}, {hi_c}] for n={n}")
-    out = torch.empty(s, dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    raise_on(_fused_fn()(Cx.data_ptr(), m, Cy.data_ptr(), n, rows.data_ptr(),
-                          cols.data_ptr(), t.data_ptr(), off.data_ptr(),
-                          out.data_ptr(), s, LOSS_CODES[loss], threads,
-                          stream), "spar_cost_fused")
+    check_threads(threads)
+    check_support_range(rows, cols, m, n)
+    return launch_fused(Cx, Cy, rows, cols, t, off, loss, threads)
+
+
+def check_support_range(rows, cols, m: int, n: int):
+    """Raise unless 0 <= rows < m and 0 <= cols < n: the kernel reads Cx
+    and Cy at these indices. One host sync."""
+    if not rows.shape[0]:
+        return
+    lo_r, hi_r = torch.aminmax(rows)
+    lo_c, hi_c = torch.aminmax(cols)
+    lo_r, hi_r, lo_c, hi_c = torch.stack([lo_r, hi_r, lo_c, hi_c]).tolist()
+    if lo_r < 0 or hi_r >= m or lo_c < 0 or hi_c >= n:
+        raise IndexError(f"support indices out of range: rows in "
+                         f"[{lo_r}, {hi_r}] for m={m}, cols in "
+                         f"[{lo_c}, {hi_c}] for n={n}")
+
+
+def launch_fused(Cx, Cy, rows, cols, t, off, loss: str, threads: int,
+                 perm=None):
+    """The fused kernel on arguments already checked by the caller (the
+    index range included), or its plain version on CPU tensors.
+
+    ``perm`` (int32, optional): output k of the support as given goes to
+    ``perm[k]``, with ``off[perm[k]]`` added."""
+    if not Cx.is_cuda:
+        return spar_cost_plain(Cx, Cy, rows, cols, t, off, loss, perm=perm)
+    s = rows.shape[0]
+    out = torch.empty(s, dtype=torch.float32, device=Cx.device)
+    stream = torch.cuda.current_stream(Cx.device).cuda_stream
+    raise_on(_fused_lib().spar_cost_fused_launch(
+        Cx.data_ptr(), Cx.shape[0], Cy.data_ptr(), Cy.shape[0],
+        rows.data_ptr(), cols.data_ptr(), t.data_ptr(), off.data_ptr(),
+        None if perm is None else perm.data_ptr(), out.data_ptr(), s,
+        LOSS_CODES[loss], threads, stream), "spar_cost_fused")
     LAUNCHES["spar_cost_fused"] += 1
     return out

@@ -10,9 +10,11 @@ Tolerances, kernel against plain version:
 * spar_cost (K1, K2): |kernel - plain| <= 1e-4 · scale per row, where
   scale is Σ_l |terms of L|·|t_l| + |off_k|
   (``spar_cost.ref.spar_cost_error_scale``; |Lmat|·|t| + |off| for the
-  matvec). A kernel lane adds s/32 terms in sequence and the warp 5 more
-  levels, so two correct fp32 sums differ by at most (s/32 + 5)·2⁻²⁴ of
-  that scale: 6.1e-5 at s = 32768.
+  matvec). A kernel lane adds at most s/32 terms in sequence and the warp
+  5 more levels (K2's rows path: s/threads terms, 5 levels, then the
+  block's warps in order), so two correct fp32 sums differ by at most
+  (s/32 + 5)·2⁻²⁴ of that scale: 6.1e-5 at s = 32768, in any order of the
+  support.
 * gw_cost (K3): |kernel - plain| <= 2e-4 · scale per output, scale
   Σ_{l,p} |terms of L|·|T_lp| (``gw_cost.ref.gw_cost_error_scale``). A
   thread adds ceil(L/16)·P terms in sequence and the block 16 more:
@@ -26,13 +28,19 @@ Tolerances, kernel against plain version:
   scale = Σ_t p_st·|v_t| (``attention_error_scale``): a score sums hd
   products (its error, up to hd·2⁻²⁴·Σ|q_d k_d|/√hd ≲ hd^1.5·2⁻²⁴ for
   unit inputs, scales p) and an output sums up to S terms, on each side.
-  bf16 adds the output's rounding: 2⁻⁸·|plain| (twice the half ulp).
+  bf16 adds the output's rounding, 2⁻⁸·|plain| (twice the half ulp), and
+  the rounding of P to bf16 for the tensor cores' PV product, 2⁻⁸·scale:
+  each p_st is off by at most 2⁻⁹ of itself while l sums the unrounded
+  p, so the output moves by at most 2⁻⁹·Σ_t p_st·|v_t|, taken twice.
 * SSD intra-chunk (K6): |kernel - plain| <= 2·(k + N + 8)·2⁻²⁴ · scale,
   scale = the output over absolute values (``ssd_intra_error_scale``): the
   Gram entry sums N products and the output k terms, on each side.
 * the reduced models on the card against the CPU path: max error 1e-4 of
   the largest logit, as in the CPU parity tests of the whole stack.
 """
+import shutil
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -41,12 +49,13 @@ import repro_torch
 from repro_torch.api import interop
 from repro_torch.api.solvers import GridGWSolver, SparGWSolver
 from repro_torch.configs import get_reduced
+from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.flash_attention import flash_attention as fa
 from repro_torch.kernels.flash_attention.ref import attention_error_scale
 from repro_torch.kernels.gw_cost import gw_cost
 from repro_torch.kernels.gw_cost import ref as gw_ref
 from repro_torch.kernels.sinkhorn import sinkhorn
-from repro_torch.kernels.spar_cost import ref, spar_cost
+from repro_torch.kernels.spar_cost import ops, ref, spar_cost
 from repro_torch.kernels.ssd import ssd
 from repro_torch.kernels.ssd.ref import ssd_intra_error_scale
 from repro_torch.models import Model
@@ -93,19 +102,63 @@ def test_matvec_matches_plain(dev, s, threads):
 
 
 @pytest.mark.parametrize("loss", ["l1", "l2", "kl"])
-@pytest.mark.parametrize("s", [1, 33, 3001])
-def test_fused_matches_plain(dev, loss, s):
-    m, n = 777, 555
-    Cx, Cy = _rand((m, m), 3, dev, lo=0.05), _rand((n, n), 4, dev, lo=0.05)
+@pytest.mark.parametrize("m,n,s,order", [
+    (777, 555, 1, "given"), (777, 555, 33, "given"),
+    (777, 555, 3001, "given"), (777, 555, 3001, "sorted"),
+    (555, 777, 33, "sorted"), (300, 2048, 32768, "sorted"),
+    (2048, 2048, 32768, "given"), (2048, 2048, 32768, "sorted"),
+    (30000, 30000, 4096, "given"), (30000, 30000, 4096, "sorted")])
+def test_fused_matches_plain(dev, loss, m, n, s, order):
+    """Both paths of the kernel (rows in shared memory; at m = n = 30000
+    the rows do not fit and are read through L1/L2), m != n, ragged s,
+    duplicate pairs, and the support in its given order or sorted by row
+    with the outputs scattered back through the permutation."""
+    gen = torch.Generator(device=dev).manual_seed(m + n)
+    Cx = torch.rand(m, m, generator=gen, device=dev) + 0.05
+    Cy = torch.rand(n, n, generator=gen, device=dev) + 0.05
     rows, cols = _support(m, n, s, 5, dev)
     t = _rand(s, 6, dev) - 0.5
     off = _rand(s, 7, dev, lo=-3.0)
-    got = spar_cost.spar_cost_cuda(Cx, Cy, rows, cols, t, off, loss=loss)
+    assert (spar_cost.fused_rows_per_block(m, n, s) > 0) == (m + n < 50000)
+    spar_cost.reset_launch_counts()
+    if order == "given":
+        got = spar_cost.spar_cost_cuda(Cx, Cy, rows, cols, t, off, loss=loss)
+    else:
+        perm, rows_s, cols_s = ops.sort_support(rows, cols)
+        assert torch.all(rows_s[1:] >= rows_s[:-1])
+        got = spar_cost.launch_fused(Cx, Cy, rows_s, cols_s, t[perm], off,
+                                     loss, 256, perm=perm.int())
+    torch.cuda.synchronize()
+    assert spar_cost.LAUNCHES["spar_cost_fused"] == 1
     want = spar_cost.spar_cost_plain(Cx, Cy, rows.long(), cols.long(), t,
                                      off, loss)
     scale = ref.spar_cost_error_scale(Cx, Cy, rows.long(), cols.long(), t,
                                       off, loss)
     assert torch.all((got - want).abs() <= RTOL_SCALE * scale)
+
+
+def test_cost_fn_pallas_on_card_matches_plain(dev):
+    """The solver's closure: one range check and one sort per support,
+    then one launch per call, outputs in the support's own order."""
+    m, n, s = 400, 300, 5000
+    Cx, Cy = _rand((m, m), 3, dev, lo=0.05), _rand((n, n), 4, dev, lo=0.05)
+    rows, cols = _support(m, n, s, 5, dev)
+    fn = ops.make_spar_cost_fn(Cx, Cy, rows.long(), cols.long(), "l2",
+                               impl="pallas")
+    spar_cost.reset_launch_counts()
+    for seed in (6, 8):
+        t = _rand(s, seed, dev) - 0.5
+        off = _rand(s, seed + 1, dev, lo=-3.0)
+        got = fn(t, off)
+        want = spar_cost.spar_cost_plain(Cx, Cy, rows.long(), cols.long(), t,
+                                         off, "l2")
+        scale = ref.spar_cost_error_scale(Cx, Cy, rows.long(), cols.long(),
+                                          t, off, "l2")
+        assert torch.all((got - want).abs() <= RTOL_SCALE * scale)
+    assert spar_cost.LAUNCHES["spar_cost_fused"] == 2
+    with pytest.raises(IndexError):
+        ops.make_spar_cost_fn(Cx, Cy, rows.long() + m, cols.long(), "l2",
+                              impl="pallas")
 
 
 def test_launch_counts_and_input_checks(dev):
@@ -275,10 +328,14 @@ def _normal(shape, seed, dev, dtype=torch.float32):
 
 @pytest.mark.parametrize("B,S,H,K,hd", [
     (1, 1, 4, 1, 16), (2, 200, 4, 4, 16), (2, 77, 8, 2, 128),
-    (1, 1000, 8, 2, 112), (1, 333, 8, 8, 128), (1, 64, 2, 2, 5)])
+    (1, 1000, 8, 2, 112), (1, 333, 8, 8, 128), (1, 64, 2, 2, 5)] + [
+    (2, S, 2 * G, 2, hd) for hd in (64, 72, 112, 128)
+    for S in (1, 63, 65, 200, 1000) for G in (1, 4)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_matches_plain(dev, B, S, H, K, hd, dtype):
-    """Ragged S and last tiles, G = 1, 2 and 4, hd from 5 to 128."""
+    """Ragged S and last tiles (of 64 and of the bf16 kernel's 128 rows),
+    G = 1, 2 and 4, hd from 5 to 128 (72: zero-padded to 80 in the bf16
+    kernel's shared memory)."""
     q = _normal((B * H, S, hd), 0, dev, dtype)
     k = _normal((B * K, S, hd), 1, dev, dtype)
     v = _normal((B * K, S, hd), 2, dev, dtype)
@@ -296,8 +353,18 @@ def test_flash_attention_matches_plain(dev, B, S, H, K, hd, dtype):
     scale = scale.transpose(1, 2).reshape(B * H, S, hd)
     tol = 2 * (S + hd ** 1.5) * 2.0 ** -24 * scale
     if dtype == torch.bfloat16:
-        tol = tol + 2.0 ** -8 * want.abs()
+        tol = tol + 2.0 ** -8 * want.abs() + 2.0 ** -8 * scale
     assert torch.all((got.float() - want).abs() <= tol)
+
+
+def test_flash_attention_bf16_runs_on_tensor_cores(dev):
+    """The bf16 kernel is built from wgmma: HGMMA in the library's SASS."""
+    cuda_lib.build(["flash_attention"])
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run(
+        [tool, "-sass", str(cuda_lib.library_path("flash_attention"))],
+        capture_output=True, text=True, check=True, timeout=120).stdout
+    assert "HGMMA" in sass
 
 
 def test_flash_attention_input_checks(dev):

@@ -152,3 +152,45 @@ def test_error_scale_bounds_reorder_error(loss):
                                       else x for x in T], loss)
     scale = ref.spar_cost_error_scale(*T, loss)
     assert torch.all((f32.double() - f64).abs() <= 1e-5 * scale)
+
+
+@pytest.mark.parametrize("loss", ["l1", "l2", "kl"])
+@pytest.mark.parametrize("s,dup", [(100, False), (33, True)])
+def test_sorted_support_scattered_back_matches_reference(loss, s, dup):
+    """The fused kernel's plain version on the support sorted by row, its
+    outputs scattered back through the permutation, against the
+    reference's fused kernel (interpret mode) on the support as drawn."""
+    Cx, Cy, rows, cols, t, off = _inputs(50, 60, s, seed=s + 1, dup=dup)
+    want = jops.spar_cost_fused(jnp.asarray(Cx), jnp.asarray(Cy),
+                                jnp.asarray(rows), jnp.asarray(cols),
+                                jnp.asarray(t), jnp.asarray(off), loss=loss,
+                                block=32, interpret=True)
+    perm, rows_s, cols_s = ops.sort_support(_t(rows), _t(cols))
+    assert torch.all(rows_s[1:] >= rows_s[:-1])
+    assert torch.equal(_t(rows)[perm], rows_s)
+    got = spar_cost.launch_fused(_t(Cx), _t(Cy), rows_s, cols_s,
+                                 _t(t)[perm], _t(off), loss, 256,
+                                 perm=perm.int())
+    _close(got, want)
+
+
+def test_cost_fn_checks_the_support_once(monkeypatch):
+    """The fused closure checks the index range (a host sync) once per
+    support, when it is built, not on every call."""
+    Cx, Cy, rows, cols, t, off = _inputs(20, 30, 64, seed=4)
+    calls = []
+    check = spar_cost.check_support_range
+    monkeypatch.setattr(ops, "check_support_range",
+                        lambda *a: calls.append(1) or check(*a))
+    fn = ops.make_spar_cost_fn(_t(Cx), _t(Cy), _t(rows), _t(cols), "l2",
+                               impl="pallas")
+    for _ in range(3):
+        got = fn(_t(t), _t(off))
+    assert len(calls) == 1
+    _close(got, spar_cost.spar_cost_plain(_t(Cx), _t(Cy), _t(rows),
+                                          _t(cols), _t(t), _t(off), "l2"))
+    with pytest.raises(IndexError):
+        ops.make_spar_cost_fn(_t(Cx), _t(Cy), _t(rows) + 20, _t(cols), "l2",
+                              impl="pallas")
+    with pytest.raises(IndexError):
+        spar_cost.check_support_range(_t(rows), _t(cols) - 31, 20, 30)
