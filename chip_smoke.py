@@ -7,8 +7,10 @@ Phases; any failure raises and exits non-zero with no result line:
 
 1. require a CUDA card; print its name and power limit (nvidia-smi);
 2. build the CUDA kernels from src/repro_torch/csrc with nvcc (all
-   sources at once) and print the build time and the ptxas report; check
-   that the flash attention library's SASS holds HGMMA (tensor cores);
+   sources at once) and print the build time and the ptxas report
+   (registers of every kernel, spills of gw_cost and ssd_intra); check
+   that the flash attention library's SASS holds HGMMA and the SSD
+   library's HMMA (tensor cores);
 3. hold each kernel against its plain PyTorch version at ragged shapes
    (the gather-fused kernel also on a support sorted by row, as the
    main path runs it);
@@ -33,7 +35,11 @@ Phases; any failure raises and exits non-zero with no result line:
    drawn on the card from a torch generator (the script imports no JAX).
    First one float32 ``Model.forward`` at reduced depth (1 superblock and
    the 3 tail layers) through the flash attention (K5) and SSD (K6)
-   kernels, held against the same forward through their plain versions;
+   kernels, held against the same forward through their plain versions
+   (K5 alone within 1e-4 of the largest logit, K5 and K6 within 12 x
+   1e-4 for K6's 3xTF32 products), and a single-pass TF32 stand-in for
+   K6 must miss that bound; the distances of both fp32 routes from one
+   with K6's plain version in float64 are printed;
    then the full-depth (81 Mamba2 layers, 13 shared-block invocations)
    bfloat16 ``Model.prefill(..., use_flash=True)`` at B = 1, S = 4096: K5
    must launch 13 times and K6 81 times, the logits be finite; K5 is held
@@ -94,8 +100,11 @@ KERNEL_RTOL = 1e-4
 IMPL_VALUE_RTOL = 1e-4
 # card vs CPU on one support: index_add_ on the card sums with atomics
 SMALL_VALUE_RTOL = 1e-4
-# gw_cost kernel-vs-plain: a thread adds ceil(L/16)·P terms in sequence
-# and the block 16 more: (12·181 + 16)·2^-24 = 1.3e-4 at 181⁴
+# gw_cost kernel-vs-plain: a thread adds ceil(L/S)·ceil(P/warps) terms in
+# sequence (S ranges of l over blocks, one range of p per warp), the block
+# `warps` more in warp order and the split sum S more: (17·23 + 8 + 11)·2^-24
+# = 2.4e-5 at 181⁴ (S = 11 on 132 SMs); 2e-4 also covers the plain
+# version's matvec order
 GW_COST_RTOL = 2e-4
 # sinkhorn kernel-vs-plain: both flush the same subnormals and differ only
 # in each matvec's summation order; rtol 1e-4 plus 1e-6 of the largest
@@ -118,7 +127,9 @@ def attention_rtol(S: int, hd: int) -> float:
 
 
 # SSD kernel-vs-plain: a Gram entry sums N products and an output k terms,
-# on each side: |err| <= 2·(k + N + 8)·2^-24 of the output over |terms|
+# on each side: |err| <= 2·(k + N + 8)·2^-24 of the output over |terms|; the
+# kernel's 3xTF32 products (each within 12·2^-24 of |a||b|, rounded once
+# per 8 terms and split term) fit the same bound
 def ssd_rtol(k: int, N: int) -> float:
     return 2 * (k + N + 8) * 2.0 ** -24
 
@@ -126,11 +137,18 @@ def ssd_rtol(k: int, N: int) -> float:
 # the LM main path: zamba2-7b prefill at train_4k's sequence length
 LM_ARCH, LM_BATCH, LM_SEQ = "zamba2_7b", 1, 4096
 LM_PREFILL_REPS = 3
-# full-width, reduced-depth fp32 forward, kernels vs plain versions: the
-# two differ only in K5's and K6's summation order, carried through 10
-# blocks; the CPU parity tests hold the whole stack to 1e-4 of the
-# largest logit, and so does this
+# full-width, reduced-depth fp32 forward, kernels vs plain versions, in
+# max |difference| over the plain route's largest logit. The routes differ
+# only in K5's and K6's arithmetic, carried through 10 blocks; the CPU
+# parity tests hold the whole stack to 1e-4 of the largest logit, and so
+# does this for fp32 arithmetic (2^-24 a product): K5 alone is held to it.
+# K6 takes its products as 3xTF32, each within 12·2^-24 of |a||b| (the
+# dropped lo·lo term and the rounding of both lo parts: 3·2^-22), so the
+# route through K6 is held to 12 x 1e-4. Single-pass TF32 (2^-11 a
+# product, 8192·2^-24) must miss that bound: a stand-in for it takes K6's
+# place on the plain route and is held to fail
 LM_LOGIT_REL = 1e-4
+LM_LOGIT_REL_3XTF32 = 12 * LM_LOGIT_REL
 
 
 def moon(n: int, seed: int = 0):
@@ -289,6 +307,7 @@ def main() -> int:
     from repro_torch.kernels.ssd import ssd
     from repro_torch.kernels.ssd.ref import ssd_intra_error_scale
     from repro_torch.models import Model
+    from repro_torch.models import ssm as ssm_mod
 
     dev = torch.device("cuda")
 
@@ -309,20 +328,22 @@ def main() -> int:
           f"({', '.join(reports) or 'already built'})")
     for name, rep in reports.items():
         for line in rep.splitlines():
-            if "ptxas info" in line and ("registers" in line
-                                         or "Compiling" in line):
+            if "Compiling" in line or "registers" in line or (
+                    "spill" in line and name in ("gw_cost", "ssd_intra")):
                 print(f"  {name}: {line.strip()}")
 
-    # the bf16 attention kernel must run on the tensor cores (wgmma)
+    # the bf16 attention kernel must run on the tensor cores (wgmma), the
+    # SSD kernel's products on them too (mma.sync TF32)
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "-sass",
-                           str(cuda_lib.library_path("flash_attention"))],
-                          capture_output=True, text=True, check=True,
-                          timeout=120).stdout
-    n_hgmma = sass.count("HGMMA")
-    if not n_hgmma:
-        raise AssertionError("flash_attention: no HGMMA in the library's SASS")
-    print(f"flash_attention SASS: {n_hgmma} HGMMA instructions")
+    for name, op in (("flash_attention", "HGMMA"), ("ssd_intra", "HMMA")):
+        sass = subprocess.run([cuobjdump, "-sass",
+                               str(cuda_lib.library_path(name))],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        n_op = sass.count(op)
+        if not n_op:
+            raise AssertionError(f"{name}: no {op} in the library's SASS")
+        print(f"{name} SASS: {n_op} {op} instructions")
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -410,6 +431,14 @@ def main() -> int:
     check_ssd("ssd_intra G=5 H=12", normal(5, 128, 12, 64),
               -torch.cumsum(rand(5, 128, 12), dim=1), normal(5, 128, 64),
               normal(5, 128, 64))
+    # the 4-byte load route: P = 100 (two units of columns), xdt 4 bytes
+    # past a 16-byte boundary, H = 17 ragged against the head tile of 14
+    x_off = normal(3 * 120 * 17 * 100 + 1)[1:].view(3, 120, 17, 100)
+    if ssd.load_route(x_off) != "4-byte":
+        raise AssertionError("ssd_intra: expected the 4-byte load route")
+    check_ssd("ssd_intra G=3 k=120 H=17 P=100 unaligned", x_off,
+              -torch.cumsum(rand(3, 120, 17), dim=1), normal(3, 120, 40),
+              normal(3, 120, 40))
     print("kernel checks at ragged shapes: ok")
 
     # -- 4. the main path --------------------------------------------------
@@ -606,26 +635,72 @@ def main() -> int:
                            + len(cfg.tail_blocks))
     short = Model(short_cfg)
     short_params = {**params, "blocks": params["blocks"][:1]}
+    plain_ssd = ssm_mod.ssd_intra_ref
+
+    def short_logits(use_kernel, k6=None):
+        """the reduced-depth fp32 forward's logits; k6, if given, takes the
+        place of K6 (use_kernel) or of its plain version for this run"""
+        name = "ssd_intra" if use_kernel else "ssd_intra_ref"
+        saved = getattr(ssm_mod, name)
+        setattr(ssm_mod, name, k6 or saved)
+        try:
+            return short.forward(short_params, tokens,
+                                 act_dtype=torch.float32, use_flash=True,
+                                 use_kernel=use_kernel)[0]
+        finally:
+            setattr(ssm_mod, name, saved)
+
+    def tf32(x):                      # rounded to TF32, to nearest
+        return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    def ssd_single_pass_tf32(xdt, cs, Bm, Cm):
+        """K6's function with each product's operands rounded to TF32 and
+        fp32 sums: the arithmetic of one TF32 mma pass"""
+        k = xdt.shape[1]
+        decay = torch.exp(cs[:, :, None, :] - cs[:, None, :, :])
+        tri = torch.ones((k, k), dtype=torch.bool, device=xdt.device).tril()
+        Gm = tf32(Cm) @ tf32(Bm).transpose(1, 2)
+        M = torch.where(tri[:, :, None], Gm[..., None] * decay, 0.0)
+        return torch.einsum("gsth,gthp->gshp", tf32(M), tf32(xdt))
+
     reset_lm_counts()
-    logits_k, _, _ = short.forward(short_params, tokens,
-                                   act_dtype=torch.float32, use_flash=True)
+    logits_k = short_logits(True)
     short_counts = lm_counts()
-    logits_p, _, _ = short.forward(short_params, tokens,
-                                   act_dtype=torch.float32, use_flash=True,
-                                   use_kernel=False)
-    if lm_counts() != short_counts:
-        raise AssertionError("the plain route launched a kernel")
-    short_err = float((logits_k - logits_p).abs().max()
-                      / logits_p.abs().max())
+    logits = {
+        "plain": short_logits(False),
+        "k5_alone": short_logits(True, lambda *a, device: plain_ssd(*a)),
+        "single_pass_tf32": short_logits(False, ssd_single_pass_tf32),
+        "float64_k6": short_logits(False, lambda *a: plain_ssd(
+            *(x.double() for x in a)).float())}
+    # the other four routes launch K5 once (K5 alone) and K6 never
+    other_counts = {name: n - short_counts[name]
+                    for name, n in lm_counts().items()}
+    plain_max = logits["plain"].abs().max()
+    short_err = {name: float((x - logits["plain"]).abs().max() / plain_max)
+                 for name, x in (("kernels", logits_k),
+                                 ("k5_alone", logits["k5_alone"]),
+                                 ("single_pass_tf32",
+                                  logits["single_pass_tf32"]))}
+    vs_float64_k6 = {
+        name: float((x - logits["float64_k6"]).abs().max() / plain_max)
+        for name, x in (("kernels", logits_k), ("plain", logits["plain"]))}
     want_short = {"flash_attention": 1,
                   "ssd_intra": len(short_cfg.block_pattern)
                   + len(short_cfg.tail_blocks)}
-    if short_counts != want_short or not bool(logits_k.isfinite().all()) \
-            or short_err > LM_LOGIT_REL:
+    if short_counts != want_short or other_counts != {
+            "flash_attention": 1, "ssd_intra": 0} \
+            or not bool(logits_k.isfinite().all()) \
+            or short_err["k5_alone"] > LM_LOGIT_REL \
+            or short_err["kernels"] > LM_LOGIT_REL_3XTF32 \
+            or not short_err["single_pass_tf32"] > LM_LOGIT_REL_3XTF32:
         raise AssertionError(f"reduced-depth fp32 forward: launches "
                              f"{short_counts} (expected {want_short}), "
-                             f"kernels vs plain max rel err {short_err:.3g}")
-    del logits_k, logits_p, short_params
+                             f"other routes {other_counts}; max rel err vs "
+                             f"plain {short_err} (bounds: K5 alone "
+                             f"{LM_LOGIT_REL}, kernels "
+                             f"{LM_LOGIT_REL_3XTF32}, which single-pass "
+                             f"TF32 must exceed)")
+    del logits_k, logits, short_params
     torch.cuda.empty_cache()
 
     # full depth, bfloat16 prefill: the main path
@@ -689,6 +764,7 @@ def main() -> int:
         "act_dtype": "bfloat16", "use_flash": True, "init_s": init_s,
         "earlier_phases_gib": held_gib,
         "reduced_depth_fp32_logit_rel_err": short_err,
+        "reduced_depth_fp32_vs_float64_k6": vs_float64_k6,
         "reduced_depth_launches": short_counts,
         "k5_on_prefill_activations": {
             "shape": list(q_act.shape), "groups": g_act,
@@ -854,6 +930,19 @@ def main() -> int:
     xdt, Bm, Cm = normal(Gc, kc, Hs, Ps), normal(Gc, kc, Ns), normal(Gc, kc, Ns)
     cs = -torch.cumsum(rand(Gc, kc, Hs), dim=1)
     err = check_ssd("ssd_intra zamba2-7b shape", xdt, cs, Bm, Cm)
+    # accuracy: kernel and plain version against a float64 evaluation, rms
+    # and max of |err| over the output's rounding scale
+    want64 = ssd.ssd_intra_plain(xdt.double(), cs.double(), Bm.double(),
+                                 Cm.double())
+    scale64 = ssd_intra_error_scale(xdt, cs, Bm, Cm).double()
+    accuracy = {}
+    for name, got in (("kernel", ssd.ssd_intra_cuda(xdt, cs, Bm, Cm)),
+                      ("plain", ssd.ssd_intra_plain(xdt, cs, Bm, Cm))):
+        rel = (got.double() - want64).abs() / scale64
+        accuracy[name] = {"rms": float(rel.pow(2).mean().sqrt()),
+                          "max": float(rel.max())}
+    print(json.dumps({"ssd_intra_vs_float64": accuracy}))
+    del want64, scale64, rel
     ms = time_ms(torch, lambda: ssd.ssd_intra_cuda(xdt, cs, Bm, Cm), 20)
     plain_ms = time_ms(torch, lambda: ssd.ssd_intra_plain(xdt, cs, Bm, Cm),
                        5, warmup=1)

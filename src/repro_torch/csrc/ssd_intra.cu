@@ -11,219 +11,361 @@
 //
 // What bounds it on an H100: bytes. At zamba2-7b's layer shape (G = 32,
 // k = 128, H = 112, P = 64, N = 64) xdt and y are 117 MB each: 0.070 ms at
-// 3.35 TB/s, against ~4 GFLOP (0.06 ms at the fp32 peak).
+// 3.35 TB/s, against ~4 GFLOP (0.06 ms at the fp32 SIMT peak, so the
+// products run on the tensor cores and the loads overlap them).
 //
-// Design. One block of 256 threads owns one chunk g and a tile of 14 heads
-// (112 = 8 x 14: one wave of two blocks per SM at zamba2's shape). It forms
-// the Gram matrix C B^T once: thread (gy, gx), gx <= gy, keeps the 8 x 8
-// tile at rows 8gy.., columns 8gx.. in registers, summed over N in chunks
-// of 32 staged transposed in shared memory. Then, head by head:
-//   1. stage xdt[g, :, h, :] (rows padded to a multiple of 4 floats) and
-//      cs[g, :, h] in shared memory, four 16-byte loads in flight a thread;
-//   2. each Gram tile's owner writes its part of the masked decay block
-//      M[s, t] = (C B^T)[s, t] * exp(cs_s - cs_t) for t <= s, 0 above, into
-//      shared memory transposed (t-major, rows padded to 132 floats): exp
-//      is formed once per (s, t) and never for t > s, where it can
-//      overflow in float32 (the TPU kernel forms it and masks it with a
-//      where);
-//   3. thread (row-group pair, 4 columns) computes y for 4 rows x 4
-//      columns as a register-tiled product over t <= its last row, first
-//      for row group r, then for row group n - 1 - r: every thread sums
-//      over about k + 4 values of t, so no warp waits for the chunk's last
-//      rows. Per t one 16-byte load of M (2 addresses a warp) and one of
-//      xdt (contiguous) feed 16 FMAs; each row's outputs go out as one
-//      16-byte store.
-// The TPU grid's (k, k, heads) decay block lives in VMEM; here one head's
-// (k, k) block at a time lives in shared memory (100 KB a block with the
-// staged xdt: two blocks per SM). Ragged N, P, H and k < 128 are masked in
-// the kernel; nothing is padded in device memory.
+// Design. One block of 256 threads (8 warps) owns one chunk g and a tile of
+// 14 heads (112 = 8 x 14: 256 blocks, two a SM, one wave on 132 SMs).
+//   1. Gram matrix C B^T, once a block, on the tensor cores: C and B are
+//      staged in chunks of 32 of N; each warp computes whole 16 x 16 blocks
+//      of the lower triangle (36 blocks, t-block <= s-block) with
+//      mma.sync m16n8k8 TF32 and stores them, unmasked, in shared memory in
+//      the order of the A-operand fragments of step 3 (one float4 a thread
+//      per 8 columns, no bank conflicts).
+//   2. The block's units (head h, 64 columns of P) stream through a
+//      two-stage ring: cp.async copies xdt[g, :, h, p0 : p0 + 64] and
+//      cs[g, :, h] of unit u + 1 while unit u computes. Rows are padded to
+//      72 floats, so the B-operand reads below hit 32 banks. Two load
+//      routes, chosen by shape and alignment: 16-byte copies when P is a
+//      multiple of 4 and xdt is 16-byte aligned, else 4-byte copies; both
+//      zero-fill rows t >= k and columns past P.
+//   3. y = M xdt with M[s, t] = G[s, t] exp(cs_s - cs_t) for t <= s, 0
+//      above, on the tensor cores. The masked decay block is never stored:
+//      each warp builds it straight into its A-operand fragments from the
+//      stored Gram fragments and cs, and forms exp only where t <= s (the
+//      TPU kernel forms it everywhere and masks it; above the diagonal it
+//      can overflow). Warp w takes the 16-row tiles r = w % 4 and 7 - r
+//      (2(r + 1) + 2(8 - r) = 18 k-steps of 8 for every warp) and 32 of the
+//      64 columns; tiles above the diagonal are skipped, not computed. The
+//      B fragments of xdt are shared by the warp's two row tiles, and each
+//      of the three passes of a k-step runs over the 4 column tiles before
+//      the next, so no accumulator waits on its own last product.
+// Accuracy: both products use the 3xTF32 split, a = a_hi + a_lo with a_hi
+// and a_lo rounded to TF32 (to nearest, ties away from zero, as
+// cvt.rna.tf32.f32 rounds finite values, in two integer instructions),
+// a.b ~ a_hi b_lo + a_lo b_hi + a_hi b_hi: each product is within
+// ~3 * 2^-22 = 12 * 2^-24 of |a||b| (the dropped a_lo b_lo and the rounding
+// of the two lo parts). The three mma of a k-step (8 terms) sum into a fresh
+// partial, which an fp32 add then puts into the running sum: a running sum
+// kept inside the mma accumulators rounds less well than an fp32 add and
+// came out farther from a float64 evaluation than the plain fp32 version
+// (chip_smoke.py prints both distances). Plain single-pass TF32 (2^-11 a
+// product) would not hold the float32 reference's accuracy.
+// Ragged N, P, H and k < 128 are masked in the kernel; nothing is padded in
+// device memory. No atomics: the same inputs give the same bits every run.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxK = 128;        // chunk length the Gram tiles cover
-constexpr int kTs = kMaxK + 4;    // padded row of the transposed tiles
-constexpr int kNc = 32;           // N per staged chunk
+constexpr int kMaxK = 128;        // chunk length the row tiles cover
 constexpr int kThreads = 256;
 constexpr int kHeadTile = 14;
-constexpr int kRows = 4;              // rows of a thread's 4 x 4 outputs
-constexpr int kInFlight = 4;          // staged loads in flight per thread
+constexpr int kPT = 64;           // columns of P a unit covers
+constexpr int kXr = kPT + 8;      // padded row of a staged xdt tile
+constexpr int kNc = 32;           // N per staged chunk of C and B
+constexpr int kCr = kNc + 4;      // padded row of staged C and B
+constexpr int kGramBlocks = 36;   // 16 x 16 blocks with t-block <= s-block
+constexpr int kGf = kGramBlocks * 256;   // Gram fragments
+constexpr int kXs = kMaxK * kXr;         // one stage of xdt
+constexpr int kSmemFloats = kGf + 2 * kXs + 2 * kMaxK;
+static_assert(2 * kMaxK * kCr <= kXs, "C and B stage in one xdt stage");
 
-__host__ __device__ int padded_p(int P) { return (P + 3) & ~3; }
-
-__host__ __device__ size_t smem_floats(int k, int P) {
-  return (size_t)kMaxK * kTs + (size_t)k * padded_p(P) + kMaxK;
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+// asynchronous copies; ok == false writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// vec: P is a multiple of 4 and xdt and y are 16-byte aligned, so rows are
-// read and written in 16-byte pieces
+// x rounded to TF32 (10 bits of mantissa), to nearest with ties away from
+// zero, as cvt.rna.tf32.f32 rounds a finite x; two integer instructions
+// where cvt.rna takes four (it also tests for inf and NaN)
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+// x = hi + lo, both TF32
+__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
+                                    unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ int tri(int i) { return i * (i + 1) / 2; }
+
+// vec: P is a multiple of 4 and xdt is 16-byte aligned (16-byte copies,
+// ssd_intra_load_route); vec2: P is even (8-byte stores: y is the
+// wrapper's own allocation, so it starts on a 256-byte boundary)
 __global__ void __launch_bounds__(kThreads, 2)
     ssd_intra_kernel(const float* __restrict__ xdt, const float* __restrict__ cs,
                      const float* __restrict__ Bm, const float* __restrict__ Cm,
                      float* __restrict__ y, int k, int H, int P, int N,
-                     bool vec) {
+                     bool vec, bool vec2) {
   extern __shared__ __align__(16) float smem[];
-  float* Mt = smem;                       // M[s, t] at t * kTs + s
-  const int Pp = padded_p(P);
-  float* Xs = Mt + kMaxK * kTs;           // xdt[g, t, h, p] at t * Pp + p
-  float* css = Xs + k * Pp;               // cs[g, t, h] at t
+  float* Gf = smem;                 // Gram fragments, [block][kstep][lane][4]
+  float* Xs = Gf + kGf;             // [2][kMaxK][kXr]
+  float* css = Xs + 2 * kXs;        // [2][kMaxK]
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, q = lane & 3;   // fragment row group, column
   const int g = blockIdx.x;
   const int h0 = blockIdx.y * kHeadTile;
+  const int n_heads = min(kHeadTile, H - h0);
+  const int n_pt = (P + kPT - 1) / kPT;
+  const int n_units = n_heads * n_pt;
+  const int kr = (k + 7) & ~7;              // rows the k-steps cover
 
-  // -- Gram matrix C B^T: thread (gy, gx) keeps rows 8gy.., columns 8gx.. --
-  const int gy = tid >> 4, gx = tid & 15;
-  const bool owner = gx <= gy && 8 * gy < k;
-  float gram[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) gram[i][j] = 0.f;
+  // -- unit u: xdt[g, :, h, p0 : p0 + 64] and cs[g, :, h] into stage u & 1 --
+  auto issue = [&](int u) {
+    const int h = h0 + u / n_pt, p0 = (u % n_pt) * kPT;
+    float* xs = Xs + (u & 1) * kXs;
+    const float* src = xdt + ((size_t)g * k * H + h) * P + p0;
+    const size_t row = (size_t)H * P;       // stride of t
+    if (vec) {
+      for (int i = tid; i < kr * (kPT / 4); i += kThreads) {
+        const int t = i >> 4, c = (i & 15) * 4;
+        const bool ok = t < k && p0 + c < P;
+        cp_async16(xs + t * kXr + c, ok ? src + t * row + c : xdt, ok);
+      }
+    } else {
+      for (int i = tid; i < kr * kPT; i += kThreads) {
+        const int t = i >> 6, c = i & 63;
+        const bool ok = t < k && p0 + c < P;
+        cp_async4(xs + t * kXr + c, ok ? src + t * row + c : xdt, ok);
+      }
+    }
+    if (tid < kr)
+      cp_async4(css + (u & 1) * kMaxK + tid,
+                tid < k ? cs + ((size_t)g * k + tid) * H + h : cs, tid < k);
+  };
+
+  issue(0);
+  cp_async_commit();
+
+  // -- 1. Gram blocks b = w, w + 8, ... of the lower triangle ---------------
   {
-    float* Cs = Mt;                 // C[g, s, n0 + n] at n * kTs + s
-    float* Bs = Mt + kNc * kTs;     // B[g, t, n0 + n] at n * kTs + t
+    float gacc[5][2][4];
+#pragma unroll
+    for (int e = 0; e < 5; ++e)
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) gacc[e][jj][c] = 0.f;
+    float* Cs = Xs + kXs;                   // stage 1: C[s, n0 + n]
+    float* Bs = Cs + kMaxK * kCr;           //          B[t, n0 + n]
     const float* cg = Cm + (size_t)g * k * N;
     const float* bg = Bm + (size_t)g * k * N;
     for (int n0 = 0; n0 < N; n0 += kNc) {
       const int nn = min(kNc, N - n0);
       __syncthreads();
-      for (int idx = tid; idx < kMaxK * kNc; idx += kThreads) {
-        const int s = idx / kNc, n = idx - s * kNc;
+      for (int i = tid; i < kMaxK * kNc; i += kThreads) {
+        const int s = i >> 5, n = i & 31;
         const bool in = s < k && n < nn;
-        Cs[n * kTs + s] = in ? cg[(size_t)s * N + n0 + n] : 0.f;
-        Bs[n * kTs + s] = in ? bg[(size_t)s * N + n0 + n] : 0.f;
+        Cs[s * kCr + n] = in ? cg[(size_t)s * N + n0 + n] : 0.f;
+        Bs[s * kCr + n] = in ? bg[(size_t)s * N + n0 + n] : 0.f;
       }
       __syncthreads();
-      if (owner) {
-        for (int n = 0; n < nn; ++n) {
-          const float4 c0 = *reinterpret_cast<const float4*>(&Cs[n * kTs + 8 * gy]);
-          const float4 c1 = *reinterpret_cast<const float4*>(&Cs[n * kTs + 8 * gy + 4]);
-          const float4 b0 = *reinterpret_cast<const float4*>(&Bs[n * kTs + 8 * gx]);
-          const float4 b1 = *reinterpret_cast<const float4*>(&Bs[n * kTs + 8 * gx + 4]);
-          const float cv[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
-          const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-          for (int i = 0; i < 8; ++i)
+      for (int e = 0; e < 5; ++e) {
+        const int b = w + 8 * e;
+        if (b >= kGramBlocks) break;
+        int i = 0;                          // b = tri(i) + j, j <= i
+        while (tri(i + 1) <= b) ++i;
+        const int j = b - tri(i);
+        if (16 * i >= k) continue;          // rows past the chunk stay 0
+        for (int ks = 0; ks < (nn + 7) / 8; ++ks) {
+          const float* ca = Cs + (16 * i + gr) * kCr + 8 * ks + q;
+          unsigned ahi[4], alo[4];
+          split(ca[0], ahi[0], alo[0]);
+          split(ca[8 * kCr], ahi[1], alo[1]);
+          split(ca[4], ahi[2], alo[2]);
+          split(ca[8 * kCr + 4], ahi[3], alo[3]);
 #pragma unroll
-            for (int j = 0; j < 8; ++j) gram[i][j] = fmaf(cv[i], bv[j], gram[i][j]);
+          for (int jj = 0; jj < 2; ++jj) {
+            const float* bb = Bs + (16 * j + 8 * jj + gr) * kCr + 8 * ks + q;
+            unsigned bh0, bl0, bh1, bl1;
+            split(bb[0], bh0, bl0);
+            split(bb[4], bh1, bl1);
+            float part[4] = {0.f, 0.f, 0.f, 0.f};  // 3xTF32, as in step 3
+            mma(part, alo, bh0, bh1);
+            mma(part, ahi, bl0, bl1);
+            mma(part, ahi, bh0, bh1);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) gacc[e][jj][c] += part[c];
+          }
         }
       }
+    }
+    // accumulator (row gr (+8), columns 8jj + 2q, +1) -> A-fragment order:
+    // element (r, c) of a block at ((c / 8) * 32 + (r % 8) * 4 + c % 4) * 4
+    //                                + r / 8 + 2 * ((c % 8) / 4)
+#pragma unroll
+    for (int e = 0; e < 5; ++e) {
+      const int b = w + 8 * e;
+      if (b >= kGramBlocks) break;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int r = gr + 8 * (c >> 1), col = 2 * q + (c & 1);
+          Gf[b * 256 + (jj * 32 + (r & 7) * 4 + (col & 3)) * 4 + (r >> 3) +
+             2 * (col >> 2)] = gacc[e][jj][c];
+        }
     }
   }
+  __syncthreads();                          // Gram stored, stage 1 free
+  if (n_units > 1) issue(1);
+  cp_async_commit();
 
-  // a unit of step 3: 4 columns of row groups rg and n_rg - 1 - rg, so
-  // every unit sums over about k + 4 values of t
-  const int n_rg = (k + kRows - 1) / kRows;
-  const int n_cg = Pp / 4;
-  const int n_units = (n_rg + 1) / 2 * n_cg;
-  for (int h = h0; h < min(h0 + kHeadTile, H); ++h) {
-    __syncthreads();  // the last head's M and xdt (or the Gram staging) are read
+  // -- 3. y for each unit ---------------------------------------------------
+  const int r_lo = w & 3, r_hi = 7 - r_lo;  // this warp's row tiles
+  const int c0 = (w >> 2) * 32;             // and its 32 columns of 64
+  const int n_ks_max = kr / 8;
+  const int ks_hi = 16 * r_hi < k ? min(2 * (r_hi + 1), n_ks_max) : 0;
+  const int ks_lo = 16 * r_lo < k ? min(2 * (r_lo + 1), n_ks_max) : 0;
+  const int ks_end = max(ks_hi, ks_lo);
 
-    // -- 1. stage xdt[g, :, h, :] and cs[g, :, h] ---------------------------
-    const int q = Pp / 4;                 // 16-byte pieces of a staged row
-    for (int base = tid; base < k * q; base += kThreads * kInFlight) {
-      float4 piece[kInFlight];
+  for (int u = 0; u < n_units; ++u) {
+    cp_async_wait_one();                    // unit u has landed (this thread)
+    __syncthreads();                        // ... every thread's
+    const float* xs = Xs + (u & 1) * kXs;
+    const float* cst = css + (u & 1) * kMaxK;
+    const int h = h0 + u / n_pt, p0 = (u % n_pt) * kPT;
+
+    float cs_s[2][2];                       // [row tile][row gr, gr + 8]
 #pragma unroll
-      for (int u = 0; u < kInFlight; ++u) {
-        const int idx = base + u * kThreads;
-        piece[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (idx < k * q) {
-          const int t = idx / q, p = 4 * (idx - t * q);
-          const float* src = xdt + (((size_t)g * k + t) * H + h) * P + p;
-          if (vec) {
-            if (p < P) piece[u] = *reinterpret_cast<const float4*>(src);
+    for (int a = 0; a < 2; ++a) {
+      const int rt = a ? r_hi : r_lo;
+      cs_s[a][0] = cst[16 * rt + gr];
+      cs_s[a][1] = cst[16 * rt + gr + 8];
+    }
+
+    float acc[2][4][4];
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[a][n][c] = 0.f;
+
+    for (int ks = 0; ks < ks_end; ++ks) {
+      // B fragments of xdt: rows 8ks + q (+4), columns c0 + 8n + gr
+      unsigned bh[4][2], bl[4][2];
+      const float* xb = xs + (8 * ks + q) * kXr + c0 + gr;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        split(xb[8 * n], bh[n][0], bl[n][0]);
+        split(xb[4 * kXr + 8 * n], bh[n][1], bl[n][1]);
+      }
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        const int rt = a ? r_hi : r_lo;
+        if (ks >= (a ? ks_hi : ks_lo)) continue;
+        // A fragment of M: G[s, t] exp(cs_s - cs_t) for rows s0 (+8),
+        // columns t0 (+4); exp only where t <= s
+        const float4 gv = reinterpret_cast<const float4*>(
+            Gf)[((tri(rt) + (ks >> 1)) * 2 + (ks & 1)) * 32 + lane];
+        const int s0 = 16 * rt + gr, t0 = 8 * ks + q;
+        const float ct0 = cst[t0], ct1 = cst[t0 + 4];
+        float4 mv;
+        if ((ks >> 1) < rt) {               // below the diagonal: t < s
+          mv.x = gv.x * expf(cs_s[a][0] - ct0);
+          mv.y = gv.y * expf(cs_s[a][1] - ct0);
+          mv.z = gv.z * expf(cs_s[a][0] - ct1);
+          mv.w = gv.w * expf(cs_s[a][1] - ct1);
+        } else {                            // the diagonal block: exp(-inf)
+          mv.x = gv.x * expf(t0 <= s0 ? cs_s[a][0] - ct0 : -INFINITY);
+          mv.y = gv.y * expf(t0 <= s0 + 8 ? cs_s[a][1] - ct0 : -INFINITY);
+          mv.z = gv.z * expf(t0 + 4 <= s0 ? cs_s[a][0] - ct1 : -INFINITY);
+          mv.w = gv.w * expf(t0 + 4 <= s0 + 8 ? cs_s[a][1] - ct1 : -INFINITY);
+        }
+        unsigned ahi[4], alo[4];
+        split(mv.x, ahi[0], alo[0]);
+        split(mv.y, ahi[1], alo[1]);
+        split(mv.z, ahi[2], alo[2]);
+        split(mv.w, ahi[3], alo[3]);
+        // 3xTF32 into a fresh partial sum of this k-step, one pass over the
+        // 4 column tiles at a time (no accumulator waits on its own last
+        // product), then added to the running sum by an fp32 add
+        float part[4][4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) part[n][c] = 0.f;
+#pragma unroll
+        for (int n = 0; n < 4; ++n) mma(part[n], alo, bh[n][0], bh[n][1]);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) mma(part[n], ahi, bl[n][0], bl[n][1]);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) mma(part[n], ahi, bh[n][0], bh[n][1]);
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[a][n][c] += part[n][c];
+      }
+    }
+
+    // y rows 16rt + gr (+8), columns p0 + c0 + 8n + 2q (+1)
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const int rt = a ? r_hi : r_lo;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int s = 16 * rt + gr + 8 * half;
+        if (s >= k) continue;
+        float* dst = y + (((size_t)g * k + s) * H + h) * P;
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const int p = p0 + c0 + 8 * n + 2 * q;
+          const float v0 = acc[a][n][2 * half], v1 = acc[a][n][2 * half + 1];
+          if (vec2) {
+            if (p < P) *reinterpret_cast<float2*>(dst + p) = make_float2(v0, v1);
           } else {
-            float v[4];
-#pragma unroll
-            for (int e = 0; e < 4; ++e) v[e] = p + e < P ? src[e] : 0.f;
-            piece[u] = make_float4(v[0], v[1], v[2], v[3]);
+            if (p < P) dst[p] = v0;
+            if (p + 1 < P) dst[p + 1] = v1;
           }
         }
       }
-#pragma unroll
-      for (int u = 0; u < kInFlight; ++u) {
-        const int idx = base + u * kThreads;
-        if (idx < k * q) reinterpret_cast<float4*>(Xs)[idx] = piece[u];
-      }
     }
-    for (int t = tid; t < k; t += kThreads)
-      css[t] = cs[((size_t)g * k + t) * H + h];
-    __syncthreads();
 
-    // -- 2. masked decay block, t-major -----------------------------------
-    if (owner) {
-      float cs_s[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        cs_s[i] = 8 * gy + i < k ? css[8 * gy + i] : 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int t = 8 * gx + j;
-        const float cs_t = t < k ? css[t] : 0.f;
-        float m[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int s = 8 * gy + i;
-          m[i] = (t <= s && s < k) ? gram[i][j] * expf(cs_s[i] - cs_t) : 0.f;
-        }
-        *reinterpret_cast<float4*>(&Mt[t * kTs + 8 * gy]) =
-            make_float4(m[0], m[1], m[2], m[3]);
-        *reinterpret_cast<float4*>(&Mt[t * kTs + 8 * gy + 4]) =
-            make_float4(m[4], m[5], m[6], m[7]);
-      }
-    }
-    __syncthreads();
-
-    // -- 3. y[s, p] = sum_{t <= s} M[s, t] xdt[t, p] --------------------------
-    for (int unit = tid; unit < n_units; unit += kThreads) {
-      const int pair = unit / n_cg, p0 = (unit % n_cg) * 4;
-#pragma unroll 1
-      for (int side = 0; side < 2; ++side) {
-        const int rg = side ? n_rg - 1 - pair : pair;
-        if (side && rg == pair) break;
-        const int s0 = kRows * rg;
-        float acc[kRows][4];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
-        const int t_end = min(s0 + kRows, k);
-#pragma unroll 2
-        for (int t = 0; t < t_end; ++t) {
-          const float4 mv = *reinterpret_cast<const float4*>(&Mt[t * kTs + s0]);
-          const float4 xv = *reinterpret_cast<const float4*>(&Xs[t * Pp + p0]);
-          const float mr[kRows] = {mv.x, mv.y, mv.z, mv.w};
-          const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-          for (int i = 0; i < kRows; ++i)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(mr[i], xr[c], acc[i][c]);
-        }
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          const int s = s0 + i;
-          if (s >= k) continue;
-          float* dst = y + (((size_t)g * k + s) * H + h) * P + p0;
-          if (vec && p0 + 4 <= P) {
-            *reinterpret_cast<float4*>(dst) =
-                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-          } else {
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-              if (p0 + c < P) dst[c] = acc[i][c];
-          }
-        }
-      }
-    }
+    __syncthreads();                        // stage u & 1 is consumed
+    if (u + 2 < n_units) issue(u + 2);
+    cp_async_commit();
   }
 }
 
 }  // namespace
 
-// One launch. Returns the cudaError_t (0 on success), cudaErrorInvalidValue
-// for a shape the kernel does not take (k > 128), and the attribute call's
-// error when P needs more shared memory than the card gives a block.
+// The load route the launcher takes for xdt: 1 for 16-byte copies (P a
+// multiple of 4 and xdt 16-byte aligned), 0 for 4-byte copies.
+extern "C" int ssd_intra_load_route(const float* xdt, int P) {
+  return (P & 3) == 0 && ((size_t)xdt & 15) == 0;
+}
+
+// One launch; y must start on an 8-byte boundary. Returns the cudaError_t
+// (0 on success), or cudaErrorInvalidValue for a shape the kernel does not
+// take (k > 128).
 extern "C" int ssd_intra_launch(const float* xdt, const float* cs,
                                 const float* Bm, const float* Cm, float* y,
                                 int G, int k, int H, int P, int N,
@@ -231,15 +373,18 @@ extern "C" int ssd_intra_launch(const float* xdt, const float* cs,
   if (G <= 0 || k <= 0 || H <= 0 || P <= 0) return 0;
   if (k > kMaxK || N < 0 || (H + kHeadTile - 1) / kHeadTile > 65535)
     return (int)cudaErrorInvalidValue;
-  const size_t bytes = sizeof(float) * smem_floats(k, P);
+  const int bytes = (int)sizeof(float) * kSmemFloats;
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_intra_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      ssd_intra_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_intra_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  const bool vec = (P & 3) == 0 && ((size_t)xdt & 15) == 0 &&
-                   ((size_t)y & 15) == 0;
+  const bool vec = ssd_intra_load_route(xdt, P) != 0;
+  const bool vec2 = (P & 1) == 0;
   const dim3 grid(G, (H + kHeadTile - 1) / kHeadTile);
   ssd_intra_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
-      xdt, cs, Bm, Cm, y, k, H, P, N, vec);
+      xdt, cs, Bm, Cm, y, k, H, P, N, vec, vec2);
   return (int)cudaGetLastError();
 }

@@ -13,8 +13,10 @@ from repro_torch.kernels.gw_cost.gw_cost import gw_cost_cuda
 
 dispatch.register("gw_cost", default_block=256,
                   description="grid GW cost assembly (4-D contraction); "
-                              "block = CUDA threads per block, 16 output "
-                              "groups x l-splits")
+                              "block = CUDA threads per block: 32, 64, 128 "
+                              "or 256, one warp per range of p of a 32 x 32 "
+                              "output tile (the split of l over blocks is "
+                              "set by the shape and the card)")
 
 
 def gw_cost(A, B, T, loss: str = "l1", block: Optional[int] = None):

@@ -2,9 +2,11 @@
 version.
 
 ``csrc/ssd_intra.cu`` replaces ``ssd_intra_pallas``: one block per (chunk,
-tile of 14 heads) forms C·Bᵀ once (in registers), then per head builds the
-masked decay block in shared memory (exp never formed for t > s) and
-multiplies it with xdt.
+tile of 14 heads) forms C·Bᵀ once on the tensor cores (3xTF32), then
+streams its (head, 64 columns of P) units through a two-stage cp.async
+ring and multiplies each head's masked decay block, built straight into
+the tensor cores' operand registers (exp never formed for t > s), with
+xdt.
 
 A wrapper given CUDA tensors launches the kernel on the current stream or
 raises; given CPU tensors it runs the plain PyTorch version
@@ -39,6 +41,8 @@ def _lib():
     lib.ssd_intra_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _P]
     lib.ssd_intra_launch.restype = _I
+    lib.ssd_intra_load_route.argtypes = [_P, _I]
+    lib.ssd_intra_load_route.restype = _I
     return lib
 
 
@@ -46,11 +50,18 @@ def _lib():
 ssd_intra_plain = ssd_intra_ref
 
 
+def load_route(xdt) -> str:
+    """How the kernel copies the CUDA tensor xdt into shared memory, as its
+    launcher decides: ``"16-byte"`` when P is a multiple of 4 and xdt
+    starts on a 16-byte boundary, else ``"4-byte"``."""
+    vec = _lib().ssd_intra_load_route(xdt.data_ptr(), xdt.shape[-1])
+    return "16-byte" if vec else "4-byte"
+
+
 def ssd_intra_cuda(xdt, cs, Bm, Cm):
     """y (G, k, H, P) float32 from xdt (G, k, H, P), cs (G, k, H), Bm and Cm
     (G, k, N), all float32 and contiguous. CUDA tensors launch the kernel
-    (k <= 128; its shared memory grows with P, and a P that does not fit a
-    block fails the launch); CPU tensors take :func:`ssd_intra_plain`.
+    (k <= 128, any P, N and H); CPU tensors take :func:`ssd_intra_plain`.
     """
     if not xdt.is_cuda:
         return ssd_intra_plain(xdt, cs, Bm, Cm)

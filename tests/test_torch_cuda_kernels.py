@@ -17,8 +17,11 @@ Tolerances, kernel against plain version:
   support.
 * gw_cost (K3): |kernel - plain| <= 2e-4 · scale per output, scale
   Σ_{l,p} |terms of L|·|T_lp| (``gw_cost.ref.gw_cost_error_scale``). A
-  thread adds ceil(L/16)·P terms in sequence and the block 16 more:
-  (12·181 + 16)·2⁻²⁴ = 1.3e-4 at the grid path's 181⁴.
+  thread adds ceil(L/S)·ceil(P/warps) terms in sequence (S ranges of l
+  over blocks, one range of p per warp), the block ``warps`` more in warp
+  order and the split sum S more: (17·23 + 8 + 11)·2⁻²⁴ = 2.4e-5 at the
+  grid path's 181⁴ (S = 11 on 132 SMs). The bound of 2e-4 is kept: it
+  also covers the plain version's matvec order.
 * sinkhorn (K4): rtol 1e-4 plus atol 1e-6 of the coupling's largest
   entry. Kernel and plain version flush the same subnormals and differ
   only in the order of each matvec's sum, which the iterations carry
@@ -34,7 +37,10 @@ Tolerances, kernel against plain version:
   p, so the output moves by at most 2⁻⁹·Σ_t p_st·|v_t|, taken twice.
 * SSD intra-chunk (K6): |kernel - plain| <= 2·(k + N + 8)·2⁻²⁴ · scale,
   scale = the output over absolute values (``ssd_intra_error_scale``): the
-  Gram entry sums N products and the output k terms, on each side.
+  Gram entry sums N products and the output k terms, on each side. The
+  kernel's tensor-core products in 3xTF32 are each within 12·2⁻²⁴ of
+  |a||b| and round once per 8 terms and split term (3/8 of a rounding a
+  term), which fits the same bound.
 * the reduced models on the card against the CPU path: max error 1e-4 of
   the largest logit, as in the CPU parity tests of the whole stack.
 """
@@ -225,6 +231,28 @@ def test_gw_cost_matches_plain(dev, loss, shape, threads):
     assert torch.all((got - want).abs() <= GW_COST_RTOL_SCALE * scale)
 
 
+@pytest.mark.parametrize("loss", ["l1", "kl"])
+@pytest.mark.parametrize("shape", [(181, 181, 181, 181), (100, 70, 50, 130)])
+def test_gw_cost_split_sum_is_exact_and_repeatable(dev, loss, shape):
+    """The (l, p) sum split over S blocks with S not dividing L (ragged
+    last range), summed in split order: within the bound of the plain
+    version, and the same bits on a second launch."""
+    K, L, M, P = shape
+    S = gw_cost.splits(K, L, M, dev)
+    assert S > 1 and L % S != 0
+    A, B = _rand((K, L), 11, dev, lo=0.05), _rand((M, P), 12, dev, lo=0.05)
+    T = _rand((L, P), 13, dev)
+    gw_cost.reset_launch_counts()
+    first = gw_cost.gw_cost_cuda(A, B, T, loss=loss)
+    second = gw_cost.gw_cost_cuda(A, B, T, loss=loss)
+    torch.cuda.synchronize()
+    assert gw_cost.LAUNCHES["gw_cost"] == 2
+    assert torch.equal(first, second)
+    want = gw_cost.gw_cost_plain(A, B, T, loss)
+    scale = gw_ref.gw_cost_error_scale(A, B, T, loss)
+    assert torch.all((first - want).abs() <= GW_COST_RTOL_SCALE * scale)
+
+
 def _sinkhorn_inputs(m, n, seed, dev, spread=3.0):
     rng = np.random.default_rng(seed)
     a = rng.random(m) + 0.1
@@ -383,20 +411,28 @@ def test_flash_attention_input_checks(dev):
     assert fa.LAUNCHES["flash_attention"] == 0
 
 
-@pytest.mark.parametrize("G,k,H,P,N,offset", [
-    (5, 128, 12, 64, 64, 0), (3, 100, 9, 30, 17, 0), (2, 128, 1, 64, 70, 0),
-    (4, 8, 4, 32, 16, 0), (1, 1, 1, 1, 1, 0), (3, 128, 30, 64, 64, 0),
-    (2, 64, 15, 12, 8, 1)])
-def test_ssd_intra_matches_plain(dev, G, k, H, P, N, offset):
-    """Ragged G and H (head tiles of 14), k < 128, P not a multiple of 4 or
-    8, N over several staged chunks of 32, and an xdt that starts 4 bytes
-    past a 16-byte boundary (read without 16-byte loads)."""
+def _ssd_inputs(G, k, H, P, N, offset, dev):
     rng = np.random.default_rng(G * k + H)
     size = G * k * H * P
     xdt = _normal((size + offset,), 3, dev)[offset:].view(G, k, H, P)
     cs = -torch.tensor(np.cumsum(rng.random((G, k, H)), axis=1),
                        dtype=torch.float32, device=dev)
     Bm, Cm = _normal((G, k, N), 4, dev), _normal((G, k, N), 5, dev)
+    return xdt, cs, Bm, Cm
+
+
+@pytest.mark.parametrize("G,k,H,P,N,offset", [
+    (5, 128, 12, 64, 64, 0), (3, 100, 9, 30, 17, 0), (2, 128, 1, 64, 70, 0),
+    (4, 8, 4, 32, 16, 0), (1, 1, 1, 1, 1, 0), (3, 128, 30, 64, 64, 0),
+    (2, 64, 15, 12, 8, 1), (4, 128, 112, 64, 64, 0), (2, 128, 17, 64, 64, 0),
+    (2, 120, 3, 100, 40, 0), (2, 128, 5, 130, 64, 2)])
+def test_ssd_intra_matches_plain(dev, G, k, H, P, N, offset):
+    """Ragged G and H (head tiles of 14: H = 17 and 30), zamba2-7b's layer
+    widths at G = 4, k < 128 and not a multiple of 8, P not a multiple of
+    4 or 8 and P over several units of 64 columns, N over several staged
+    chunks of 32, and an xdt that starts 4 or 8 bytes past a 16-byte
+    boundary (the 4-byte load route)."""
+    xdt, cs, Bm, Cm = _ssd_inputs(G, k, H, P, N, offset, dev)
     ssd.reset_launch_counts()
     got = ssd.ssd_intra_cuda(xdt, cs, Bm, Cm)
     torch.cuda.synchronize()
@@ -405,6 +441,35 @@ def test_ssd_intra_matches_plain(dev, G, k, H, P, N, offset):
     scale = ssd_intra_error_scale(xdt, cs, Bm, Cm)
     assert torch.all((got - want).abs()
                      <= 2 * (k + N + 8) * 2.0 ** -24 * scale)
+
+
+@pytest.mark.parametrize("P,offset,route", [
+    (64, 0, "16-byte"), (64, 1, "4-byte"), (62, 0, "4-byte")])
+def test_ssd_intra_load_routes_agree_and_repeat(dev, P, offset, route):
+    """Both load routes of the kernel (16-byte copies; 4-byte copies for an
+    unaligned xdt or P % 4 != 0) match the plain version, and a second
+    launch gives the same bits."""
+    G, k, H, N = 3, 128, 16, 64
+    xdt, cs, Bm, Cm = _ssd_inputs(G, k, H, P, N, offset, dev)
+    assert ssd.load_route(xdt) == route
+    first = ssd.ssd_intra_cuda(xdt, cs, Bm, Cm)
+    second = ssd.ssd_intra_cuda(xdt, cs, Bm, Cm)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    want = ssd.ssd_intra_plain(xdt, cs, Bm, Cm)
+    scale = ssd_intra_error_scale(xdt, cs, Bm, Cm)
+    assert torch.all((first - want).abs()
+                     <= 2 * (k + N + 8) * 2.0 ** -24 * scale)
+
+
+def test_ssd_intra_runs_on_tensor_cores(dev):
+    """The SSD kernel's products are mma.sync TF32: HMMA in its SASS."""
+    cuda_lib.build(["ssd_intra"])
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run(
+        [tool, "-sass", str(cuda_lib.library_path("ssd_intra"))],
+        capture_output=True, text=True, check=True, timeout=120).stdout
+    assert "HMMA" in sass and "TF32" in sass
 
 
 def test_ssd_intra_never_forms_the_masked_decay(dev):
