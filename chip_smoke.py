@@ -2,6 +2,11 @@
 """Smoke run of the PyTorch/CUDA port (src/repro_torch) on one NVIDIA card.
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py --parent DIR
+
+``--parent DIR`` (a checkout of an earlier commit) also times that
+commit's dense Sinkhorn kernel (K4) in phase 8 on the same inputs, in a
+child process, in the order parent, this tree, this tree, parent.
 
 Phases; any failure raises and exits non-zero with no result line:
 
@@ -13,7 +18,7 @@ Phases; any failure raises and exits non-zero with no result line:
    library's HMMA (tensor cores);
 3. hold each kernel against its plain PyTorch version at ragged shapes
    (the gather-fused kernel also on a support sorted by row, as the
-   main path runs it);
+   main path runs it; the dense Sinkhorn on each of its three routes);
 4. drive the spar main path: ``repro_torch.solve`` with auto-selection
    on an n = 2048 Moon pair (spar_gw, s = 16n = 32768, cost_impl "auto"
    = the materialized matvec kernel), then the same support with the
@@ -27,10 +32,11 @@ Phases; any failure raises and exits non-zero with no result line:
    the value be finite and healthy and agree with ``use_kernel=False``
    (the plain chunked contraction on the card) on the same support; then
    a small grid solve on the card against the CPU path;
-6. drive the resident Sinkhorn's own entry point
+6. drive the dense Sinkhorn's own entry point
    (``repro_torch.kernels.sinkhorn.ops.sinkhorn``) on the 181 x 181 K of
-   the grid path's first stable=False prox step (the shared-memory
-   kernel) and on a 2048 x 2048 K (the cooperative grid kernel);
+   the grid path's first stable=False prox step (the cluster route), on a
+   2048 x 2048 K (the card route) and on a 3000 x 3000 K (the stream
+   route); each must launch its route once;
 7. drive the LM main path: zamba2-7b at its published widths, weights
    drawn on the card from a torch generator (the script imports no JAX).
    First one float32 ``Model.forward`` at reduced depth (1 superblock and
@@ -48,7 +54,8 @@ Phases; any failure raises and exits non-zero with no result line:
    and peak memory;
 8. time every kernel at its path's shapes against its plain version,
    its bound and, where one exists, one library call (K5 also at
-   llama3-8b's attention shape);
+   llama3-8b's attention shape); print each Sinkhorn route's CTAs,
+   shared memory a CTA and barriers a call;
 9. trace one grid solve, one spar solve (gather-fused) and one zamba2-7b
    prefill with ``torch.profiler`` and print each one's wall time,
    device-busy time, idle share and the kernels that take the most
@@ -90,6 +97,7 @@ FUSED_OPS_PER_PAIR = {"l1": 4, "l2": 4, "kl": 10}
 GRID_LOSS = "l1"       # the loss that reaches the gw_cost kernel
 SINKHORN_ITERS = 50    # H of the grid path's inner loop
 N_SINKHORN_LARGE = 2048   # the reference's above-its-VMEM-gate shape
+N_SINKHORN_STREAM = 3000  # 36 MB: above the card's shared memory
 
 # kernel-vs-plain: a lane adds s/32 terms in sequence and the warp 5 more
 # levels; two correct fp32 sums differ by at most (s/32 + 5)·2^-24 of the
@@ -281,7 +289,37 @@ def leaves(tree) -> list:
     return [tree]
 
 
-def main() -> int:
+def sinkhorn_ms(torch, sinkhorn, inputs: dict) -> dict:
+    """Device ms of ``sinkhorn.sinkhorn_cuda`` on each {name: (a, b, K)}."""
+    return {name: time_ms(torch, lambda: sinkhorn.sinkhorn_cuda(
+        a, b, K, SINKHORN_ITERS), 20) for name, (a, b, K) in inputs.items()}
+
+
+def time_sinkhorn_child(inputs_path: str, src: str) -> int:
+    """``--time-sinkhorn FILE --src DIR``: time the Sinkhorn kernel of the
+    package under DIR on the inputs saved in FILE; one JSON line."""
+    import torch
+
+    sys.path.insert(0, src)
+    from repro_torch.kernels.sinkhorn import sinkhorn
+
+    inputs = {name: tuple(x.cuda() for x in abK)
+              for name, abK in torch.load(inputs_path).items()}
+    print(json.dumps(sinkhorn_ms(torch, sinkhorn, inputs)))
+    return 0
+
+
+def parent_sinkhorn_ms(parent: Path, inputs_path: Path) -> dict:
+    """:func:`sinkhorn_ms` of the checkout at ``parent``, in a child
+    process (both trees' packages are named repro_torch)."""
+    out = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--time-sinkhorn",
+         str(inputs_path), "--src", str(parent / "src")],
+        capture_output=True, text=True, check=True, timeout=600)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def main(parent: Path | None = None) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -322,8 +360,7 @@ def main() -> int:
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
     reports = cuda_lib.build(["spar_matvec", "spar_cost_fused", "gw_cost",
-                              "sinkhorn_resident", "flash_attention",
-                              "ssd_intra"])
+                              "sinkhorn", "flash_attention", "ssd_intra"])
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(reports) or 'already built'})")
     for name, rep in reports.items():
@@ -380,14 +417,17 @@ def main() -> int:
               gw_cost.gw_cost_cuda(A, B, Tg, loss=loss),
               gw_cost.gw_cost_plain(A, B, Tg, loss),
               gw_ref.gw_cost_error_scale(A, B, Tg, loss), rtol=GW_COST_RTOL)
-    for m, n, variant in ((150, 173, "sinkhorn_resident"),
-                          (613, 487, "sinkhorn_grid")):
+    for m, n, variant in ((150, 173, "sinkhorn_cluster"),
+                          (800, 700, "sinkhorn_cluster"),
+                          (1531, 1201, "sinkhorn_card"),
+                          (3001, 2999, "sinkhorn_stream")):
         a, b = rand(m, lo=0.1), rand(n, lo=0.1)
         Kr = torch.exp(-3.0 * rand(m, n))
         sinkhorn.reset_launch_counts()
         got = sinkhorn.sinkhorn_cuda(a / a.sum(), b / b.sum(), Kr, 30)
         if sinkhorn.LAUNCHES[variant] != 1:
-            raise AssertionError(f"{m}x{n} did not run {variant}")
+            raise AssertionError(f"{m}x{n} did not run {variant}: "
+                                 f"{sinkhorn.LAUNCHES}")
         check_coupling(torch, f"{variant} {m}x{n}", got,
                        sinkhorn.sinkhorn_plain(a / a.sum(), b / b.sum(), Kr,
                                                30))
@@ -572,7 +612,7 @@ def main() -> int:
     print(f"small grid solve n={N_SMALL} side={small_solver.s_r}: card "
           f"agrees with CPU (value rtol {SMALL_VALUE_RTOL})")
 
-    # -- 6. the resident Sinkhorn's own entry point --------------------------
+    # -- 6. the dense Sinkhorn's own entry point ------------------------------
     # K of the grid path's first stable=False prox step on the main support
     R, C = grid_support
     CxR, CyC, aR, bC, w = solvers._grid_block_data(grid_problem.to(dev), R,
@@ -584,15 +624,20 @@ def main() -> int:
     a_big = torch.full((N_SINKHORN_LARGE,), 1.0 / N_SINKHORN_LARGE,
                        device=dev)
     K_big = torch.exp(-3.0 * rand(N_SINKHORN_LARGE, N_SINKHORN_LARGE))
+    a_huge = torch.full((N_SINKHORN_STREAM,), 1.0 / N_SINKHORN_STREAM,
+                        device=dev)
+    K_huge = torch.exp(-3.0 * rand(N_SINKHORN_STREAM, N_SINKHORN_STREAM))
     sinkhorn_paths = {}
-    for variant, (sa, sb, sK) in (("sinkhorn_resident", (aR, bC, K_step)),
-                                  ("sinkhorn_grid", (a_big, a_big, K_big))):
+    for variant, (sa, sb, sK) in (("sinkhorn_cluster", (aR, bC, K_step)),
+                                  ("sinkhorn_card", (a_big, a_big, K_big)),
+                                  ("sinkhorn_stream",
+                                   (a_huge, a_huge, K_huge))):
         torch.cuda.synchronize()
         sinkhorn.reset_launch_counts()
         T_k = sinkhorn_ops.sinkhorn(sa, sb, sK, iters=SINKHORN_ITERS)
         torch.cuda.synchronize()
         counts = dict(sinkhorn.LAUNCHES)
-        if counts[variant] != 1:
+        if counts != {**{k: 0 for k in counts}, variant: 1}:
             raise AssertionError(f"sinkhorn path {tuple(sK.shape)}: "
                                  f"launches {counts}, expected {variant}")
         if not bool(T_k.isfinite().all()):
@@ -602,8 +647,9 @@ def main() -> int:
                                                      SINKHORN_ITERS))
         sinkhorn_paths[variant] = (sa, sb, sK, counts[variant], err)
     print(f"sinkhorn entry point: {side}x{side} K of the first prox step "
-          f"-> sinkhorn_resident, {N_SINKHORN_LARGE}x{N_SINKHORN_LARGE} -> "
-          f"sinkhorn_grid; both agree with the plain loop")
+          f"-> sinkhorn_cluster, {N_SINKHORN_LARGE}x{N_SINKHORN_LARGE} -> "
+          f"sinkhorn_card, {N_SINKHORN_STREAM}x{N_SINKHORN_STREAM} -> "
+          f"sinkhorn_stream; all agree with the plain loop")
 
     # -- 7. the LM main path: zamba2-7b ------------------------------------
     torch.cuda.empty_cache()
@@ -872,22 +918,51 @@ def main() -> int:
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None})
 
-    # both sinkhorn kernels at their paths' shapes, H = 50
+    # the three sinkhorn routes at their entry-point shapes, H = 50; with
+    # --parent, the parent's kernel on the same inputs, before and after
+    k4_inputs = {variant: path[:3] for variant, path in sinkhorn_paths.items()}
+    k4_parent = []
+    if parent is not None:
+        inputs_path = ROOT / "build" / "sinkhorn_inputs.pt"
+        inputs_path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save({k: tuple(x.cpu() for x in v)
+                    for k, v in k4_inputs.items()}, inputs_path)
+        k4_parent.append(parent_sinkhorn_ms(parent, inputs_path))
+    k4_ms = [sinkhorn_ms(torch, sinkhorn, k4_inputs) for _ in range(2)]
+    if parent is not None:
+        k4_parent.append(parent_sinkhorn_ms(parent, inputs_path))
+    k4_routes = {}
     for variant, (sa, sb, sK, count, err) in sinkhorn_paths.items():
         m, n = sK.shape
-        ms = time_ms(torch, lambda: sinkhorn.sinkhorn_cuda(
-            sa, sb, sK, SINKHORN_ITERS), 20)
+        name, ctas = sinkhorn.route(m, n, dev)
+        k4_routes[variant] = {
+            "shape": [m, n], "route": name, "threads": (
+                sinkhorn.THREADS if ctas else 256),
+            "ctas": ctas or "as many as fit, up to a warp a row",
+            "cluster": ctas if name == "sinkhorn_cluster" else None,
+            "shared_bytes_per_cta": (
+                sinkhorn.cluster_bytes(m, n, ctas)
+                if name == "sinkhorn_cluster" else
+                sinkhorn.card_bytes(m, n, ctas) if name == "sinkhorn_card"
+                else 1024),
+            "barriers_per_call": sinkhorn.barriers(name, SINKHORN_ITERS),
+            "barrier_kind": ("cluster" if name == "sinkhorn_cluster"
+                             else "grid")}
         plain_ms = time_ms(torch, lambda: sinkhorn.sinkhorn_plain(
             sa, sb, sK, SINKHORN_ITERS), 3, warmup=1)
         bound_ms, bound_by = bound(4 * (m + n + 2 * m * n),
                                    4 * m * n * SINKHORN_ITERS + 2 * m * n)
         kernels.append({
             "name": variant, "route": "cuda",
-            "source": "src/repro_torch/csrc/sinkhorn_resident.cu",
+            "source": "src/repro_torch/csrc/sinkhorn.cu",
             "replaces": "src/repro/kernels/sinkhorn/sinkhorn.py:44",
-            "launches": count, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None})
+            "launches": count, "max_abs_err": err,
+            "ms": k4_ms[0][variant], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    print(json.dumps({"sinkhorn_routes": k4_routes}))
+    print(json.dumps({"sinkhorn_ms": {
+        "order": "parent, change, change, parent" if parent else "change",
+        "change": k4_ms, "parent": k4_parent}}))
 
     # flash attention at zamba2-7b's shape (the main path's) and, off the
     # path, llama3-8b's attention shape; bf16, B = 1, S = 4096
@@ -977,4 +1052,14 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    import argparse
+
+    cli = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    cli.add_argument("--parent", type=Path, help="a checkout of an earlier "
+                     "commit whose Sinkhorn kernel phase 8 also times")
+    cli.add_argument("--time-sinkhorn", help=argparse.SUPPRESS)
+    cli.add_argument("--src", help=argparse.SUPPRESS)
+    args = cli.parse_args()
+    if args.time_sinkhorn:
+        sys.exit(time_sinkhorn_child(args.time_sinkhorn, args.src))
+    sys.exit(main(args.parent.resolve() if args.parent else None))

@@ -29,8 +29,8 @@ def grid_cost(CxR, CyC, T, loss: str, use_kernel: bool = False):
 
     Decomposable L → O(s_r² s_c + s_r s_c²) matmuls. Arbitrary L →
     O(s_r² s_c²) contraction: ``use_kernel`` routes it to the ``gw_cost``
-    kernel (its plain version on CPU tensors), else to the plain chunked
-    contraction.
+    kernel on the tensors' device (its plain version on the CPU), else to
+    the plain chunked contraction.
     """
     dec = gc.get_decomposition(loss)
     if dec is not None:
@@ -41,7 +41,7 @@ def grid_cost(CxR, CyC, T, loss: str, use_kernel: bool = False):
         t3 = dec.h1(CxR) @ T @ dec.h2(CyC).t()
         return t1 + t2 - t3
     if use_kernel:
-        return gw_cost(CxR, CyC, T, loss)
+        return gw_cost(CxR, CyC, T, loss, device=CxR.device)
     return gw_cost_ref(CxR, CyC, T, loss)
 
 

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.gw_cost.gw_cost import gw_cost_cuda
 
@@ -19,8 +21,13 @@ dispatch.register("gw_cost", default_block=256,
                               "set by the shape and the card)")
 
 
-def gw_cost(A, B, T, loss: str = "l1", block: Optional[int] = None):
-    """C[k,m] = Σ_{l,p} L(A[k,l], B[m,p]) T[l,p], (K, M) float32."""
+def gw_cost(A, B, T, loss: str = "l1", block: Optional[int] = None,
+            device=None):
+    """C[k,m] = Σ_{l,p} L(A[k,l], B[m,p]) T[l,p], (K, M) float32, on
+    ``device`` (the card unless given; the CPU runs the kernel's plain
+    version)."""
+    dev = dispatch.resolve_device(device)
     b = dispatch.block_size("gw_cost", block)
-    return gw_cost_cuda(A.float().contiguous(), B.float().contiguous(),
-                        T.float().contiguous(), loss=loss, threads=b)
+    A, B, T = (t.to(device=dev, dtype=torch.float32).contiguous()
+               for t in (A, B, T))
+    return gw_cost_cuda(A, B, T, loss=loss, threads=b)

@@ -22,10 +22,10 @@ Tolerances, kernel against plain version:
   order and the split sum S more: (17·23 + 8 + 11)·2⁻²⁴ = 2.4e-5 at the
   grid path's 181⁴ (S = 11 on 132 SMs). The bound of 2e-4 is kept: it
   also covers the plain version's matvec order.
-* sinkhorn (K4): rtol 1e-4 plus atol 1e-6 of the coupling's largest
-  entry. Kernel and plain version flush the same subnormals and differ
-  only in the order of each matvec's sum, which the iterations carry
-  along but do not amplify.
+* sinkhorn (K4, all three routes): rtol 1e-4 plus atol 1e-6 of the
+  coupling's largest entry. Kernel and plain version flush the same
+  subnormals and differ only in the order of each matvec's sum, which the
+  iterations carry along but do not amplify.
 * flash attention (K5), against the plain version in float32 on the same
   (bf16-valued) inputs: |kernel - plain| <= 2·(S + hd^1.5)·2⁻²⁴ · scale,
   scale = Σ_t p_st·|v_t| (``attention_error_scale``): a score sums hd
@@ -59,7 +59,9 @@ from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.flash_attention import flash_attention as fa
 from repro_torch.kernels.flash_attention.ref import attention_error_scale
 from repro_torch.kernels.gw_cost import gw_cost
+from repro_torch.kernels.gw_cost import ops as gw_cost_ops
 from repro_torch.kernels.gw_cost import ref as gw_ref
+from repro_torch.kernels.sinkhorn import ops as sinkhorn_ops
 from repro_torch.kernels.sinkhorn import sinkhorn
 from repro_torch.kernels.spar_cost import ops, ref, spar_cost
 from repro_torch.kernels.ssd import ssd
@@ -267,16 +269,27 @@ def _sinkhorn_close(got, want):
     assert torch.all((got - want).abs() <= tol)
 
 
+# the route each shape takes on the H100 (232 448 B of shared memory a
+# block, 132 SMs, clusters of up to 16: test_torch_sinkhorn_kernel.py holds
+# the route function to these numbers on the CPU)
 @pytest.mark.parametrize("m,n,iters,kernel", [
-    (1, 1, 5, "sinkhorn_resident"), (181, 181, 50, "sinkhorn_resident"),
-    (37, 1200, 20, "sinkhorn_resident"), (181, 181, 0, "sinkhorn_resident"),
-    (613, 487, 30, "sinkhorn_grid"), (2048, 2048, 3, "sinkhorn_grid"),
-    (9000, 7, 10, "sinkhorn_grid")])
+    (1, 1, 5, "sinkhorn_cluster"), (181, 181, 50, "sinkhorn_cluster"),
+    (37, 1200, 20, "sinkhorn_cluster"), (181, 181, 0, "sinkhorn_cluster"),
+    (613, 487, 30, "sinkhorn_cluster"), (2048, 2048, 3, "sinkhorn_card"),
+    (9000, 7, 10, "sinkhorn_cluster"),
+    # each side of each route boundary: 8 -> 16 CTAs a cluster, cluster ->
+    # card, card -> stream
+    (664, 664, 7, "sinkhorn_cluster"), (665, 665, 7, "sinkhorn_cluster"),
+    (936, 936, 7, "sinkhorn_cluster"), (937, 937, 7, "sinkhorn_card"),
+    (2640, 2640, 4, "sinkhorn_card"), (2641, 2641, 4, "sinkhorn_stream"),
+    # m a multiple of neither 16 nor the card route's 128 CTAs; iters = 0
+    # on the card and stream routes
+    (2047, 1999, 6, "sinkhorn_card"), (2048, 2048, 0, "sinkhorn_card"),
+    (3001, 2999, 0, "sinkhorn_stream")])
 def test_sinkhorn_matches_plain(dev, m, n, iters, kernel):
-    """Both kernels, on either side of the block's shared memory."""
+    """Every route, on each side of each of its size boundaries."""
     a, b, K = _sinkhorn_inputs(m, n, m + n, dev)
-    assert sinkhorn.fits_shared_memory(m, n, dev) == (
-        kernel == "sinkhorn_resident")
+    assert sinkhorn.route(m, n, dev)[0] == kernel
     sinkhorn.reset_launch_counts()
     got = sinkhorn.sinkhorn_cuda(a, b, K, iters)
     torch.cuda.synchronize()
@@ -285,18 +298,55 @@ def test_sinkhorn_matches_plain(dev, m, n, iters, kernel):
     _sinkhorn_close(got, sinkhorn.sinkhorn_plain(a, b, K, iters))
 
 
-@pytest.mark.parametrize("m,n", [(120, 90), (700, 300)])
-def test_sinkhorn_flushes_like_plain(dev, m, n):
+def test_sinkhorn_clusters_of_16_on_the_h100(dev):
+    """The card allows clusters of 16 CTAs, which the cases above between
+    665² and 936² take."""
+    assert sinkhorn.card_numbers(dev.index or 0)[2] >= 16
+    assert sinkhorn.route(665, 665, dev) == ("sinkhorn_cluster", 16)
+
+
+@pytest.mark.parametrize("m,n,kernel", [
+    (181, 181, "sinkhorn_cluster"), (800, 700, "sinkhorn_cluster"),
+    (2047, 1999, "sinkhorn_card"), (3001, 2999, "sinkhorn_stream")])
+def test_sinkhorn_repeats_bit_for_bit(dev, m, n, kernel):
+    """Sums in a fixed order, no atomics: two launches give the same bits."""
+    a, b, K = _sinkhorn_inputs(m, n, 5, dev)
+    assert sinkhorn.route(m, n, dev)[0] == kernel
+    first = sinkhorn.sinkhorn_cuda(a, b, K, 20)
+    second = sinkhorn.sinkhorn_cuda(a, b, K, 20)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("m,n,kernel", [
+    (120, 90, "sinkhorn_cluster"), (700, 300, "sinkhorn_cluster"),
+    (1500, 1400, "sinkhorn_card"), (3001, 2999, "sinkhorn_stream")])
+def test_sinkhorn_flushes_like_plain(dev, m, n, kernel):
     """Subnormal and zero entries in K and a: the kernels flush them where
     the plain version does (dead rows stay exactly 0)."""
     a, b, K = _sinkhorn_inputs(m, n, 3, dev, spread=95.0)
     a[0], a[1] = 1e-40, 0.0
     K[2] = 5e-39
+    assert sinkhorn.route(m, n, dev)[0] == kernel
     got = sinkhorn.sinkhorn_cuda(a, b, K, 20)
     want = sinkhorn.sinkhorn_plain(a, b, K, 20)
     assert torch.all(want[:3] == 0) and torch.all(got[:3] == 0)
     assert not torch.any((got != 0) & (got.abs() < torch.finfo().tiny))
     _sinkhorn_close(got, want)
+
+
+def test_sinkhorn_entry_point_runs_on_the_card(dev):
+    """``ops.sinkhorn`` and ``ops.gw_cost`` run on the card by default, CPU
+    inputs moved there, and launch their kernels."""
+    a, b, K = (x.cpu() for x in _sinkhorn_inputs(181, 181, 9, dev))
+    sinkhorn.reset_launch_counts()
+    T = sinkhorn_ops.sinkhorn(a, b, K, iters=10)
+    assert T.is_cuda and sinkhorn.LAUNCHES["sinkhorn_cluster"] == 1
+    A, B, Tg = (_rand(s, i, dev).cpu() for i, s in enumerate(
+        ((20, 10), (30, 12), (10, 12))))
+    gw_cost.reset_launch_counts()
+    assert gw_cost_ops.gw_cost(A, B, Tg).is_cuda
+    assert gw_cost.LAUNCHES == {"gw_cost": 1}
 
 
 def test_grid_family_launch_counts_and_input_checks(dev):

@@ -3,8 +3,8 @@
 The same numpy-seeded inputs go through the reference's Pallas kernel (in
 interpret mode, as tests/test_kernels.py runs it), its ``ref.py`` oracle
 and the port's ``kernels.gw_cost.ops.gw_cost``, whose wrapper runs the
-plain chunked contraction for CPU tensors. The shapes are the reference's
-own sweep, ragged ones included.
+plain chunked contraction with ``device="cpu"``. The shapes are the
+reference's own sweep, ragged ones included.
 
 Tolerance: rtol 1e-5 of the output plus atol 1e-5 of the per-output error
 scale Σ|terms of L|·|T| (``ref.gw_cost_error_scale``). Both sides
@@ -51,7 +51,7 @@ def test_plain_matches_reference_oracle(shape, loss):
     A, B, T = _inputs(shape, seed=sum(shape))
     want = j_gw_cost_ref(jnp.asarray(A), jnp.asarray(B), jnp.asarray(T), loss)
     got = ops.gw_cost(torch.from_numpy(A), torch.from_numpy(B),
-                      torch.from_numpy(T), loss)
+                      torch.from_numpy(T), loss, device="cpu")
     assert got.dtype == torch.float32 and got.shape == (shape[0], shape[2])
     _close(got.numpy(), want, A, B, T, loss)
 
@@ -67,7 +67,7 @@ def test_plain_matches_reference_kernel(shape, loss, dtype):
     want = j_gw_cost(jA, jB, jT, loss, interpret=True)
     tA, tB, tT = (torch.from_numpy(x).to(getattr(torch, dtype))
                   for x in (A, B, T))
-    got = ops.gw_cost(tA, tB, tT, loss)
+    got = ops.gw_cost(tA, tB, tT, loss, device="cpu")
     # both sides compute on the same bf16-rounded values, in float32
     r = [np.asarray(jnp.asarray(x).astype(dtype).astype(jnp.float32))
          for x in (A, B, T)]
@@ -93,7 +93,7 @@ def test_chunking_does_not_change_the_sum(loss):
 def test_empty_dimensions(shape):
     """An empty (l, p) sum is 0; an empty k or m gives an empty output."""
     A, B, T = (torch.from_numpy(x) for x in _inputs(shape, 6))
-    got = ops.gw_cost(A, B, T, "l1")
+    got = ops.gw_cost(A, B, T, "l1", device="cpu")
     assert got.shape == (shape[0], shape[2]) and torch.all(got == 0)
 
 
@@ -121,3 +121,15 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
     assert kernel_mod.LAUNCHES == {"gw_cost": 0}
     with pytest.raises(ValueError, match="unknown ground loss"):
         kernel_mod.gw_cost_cuda(A, B, T, "l3")
+
+
+def test_entry_point_needs_a_device_without_a_card(monkeypatch):
+    """With no card and no ``device`` the entry point raises; with
+    ``device="cpu"`` it runs the plain version, inputs cast to float32."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    A, B, T = (torch.from_numpy(x) for x in _inputs((9, 8, 7, 6), 7))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.gw_cost(A, B, T, "l1")
+    got = ops.gw_cost(A.double(), B.double(), T.double(), "kl", device="cpu")
+    assert got.dtype == torch.float32 and got.device.type == "cpu"
+    assert torch.equal(got, kernel_mod.gw_cost_plain(A, B, T, "kl"))

@@ -1,8 +1,8 @@
 """Parity of the port's resident-Sinkhorn entry point with the JAX reference.
 
-``repro_torch.kernels.sinkhorn.ops.sinkhorn`` runs its plain version for
-CPU tensors (the dense core loop at tol=0, with the reference's subnormal
-flush). It is held against ``repro.kernels.sinkhorn.ops.sinkhorn`` (the
+``repro_torch.kernels.sinkhorn.ops.sinkhorn`` runs its plain version with
+``device="cpu"`` (the dense core loop at tol=0, with the reference's
+subnormal flush). It is held against ``repro.kernels.sinkhorn.ops.sinkhorn`` (the
 Pallas kernel in interpret mode below the reference's 8 MiB VMEM gate,
 its jnp loop above it) and against the reference's ``sinkhorn_ref``, on
 the reference's own sweep shapes and iteration counts, numpy-seeded.
@@ -41,7 +41,7 @@ def _close(got, want):
 
 def _port(a, b, K, iters):
     return ops.sinkhorn(torch.from_numpy(a), torch.from_numpy(b),
-                        torch.from_numpy(K), iters=iters).numpy()
+                        torch.from_numpy(K), iters=iters, device="cpu").numpy()
 
 
 @pytest.mark.parametrize("iters", [10, 50])
@@ -89,7 +89,63 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
     got = kernel_mod.sinkhorn_cuda(a, b, K, 5)
     assert torch.equal(got, kernel_mod.sinkhorn_plain(a, b, K, 5))
     assert torch.equal(kernel_mod.sinkhorn_cuda(a, b, K, 0), K)
-    assert kernel_mod.LAUNCHES == {"sinkhorn_resident": 0,
-                                   "sinkhorn_grid": 0}
+    assert kernel_mod.LAUNCHES == {"sinkhorn_cluster": 0, "sinkhorn_card": 0,
+                                   "sinkhorn_stream": 0}
     with pytest.raises(ValueError, match="iters"):
         kernel_mod.sinkhorn_cuda(a, b, K, -1)
+
+
+def test_entry_point_needs_a_device_without_a_card(monkeypatch):
+    """With no card and no ``device`` the entry point raises; with
+    ``device="cpu"`` it runs the plain version on inputs of any float
+    dtype, cast to float32."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a, b, K = (torch.from_numpy(x) for x in _inputs(9, 7, 2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.sinkhorn(a, b, K, iters=5)
+    got = ops.sinkhorn(a.double(), b.double(), K.double(), iters=5,
+                       device="cpu")
+    assert got.dtype == torch.float32 and got.device.type == "cpu"
+    assert torch.equal(got, kernel_mod.sinkhorn_plain(a, b, K, 5))
+
+
+# the H100's numbers: 232 448 B of shared memory a block, 132 SMs,
+# clusters of up to 16 CTAs
+H100 = (232448, 132, 16)
+
+
+@pytest.mark.parametrize("m,n,card,want", [
+    # the main shapes: the grid path's 181² K, the entry point's 2048², and
+    # a 3000² K (36 MB) above the card's shared memory
+    (181, 181, H100, ("sinkhorn_cluster", 8)),
+    (2048, 2048, H100, ("sinkhorn_card", 128)),
+    (3000, 3000, H100, ("sinkhorn_stream", 0)),
+    # the cuda tests' shapes
+    (1, 1, H100, ("sinkhorn_cluster", 8)),
+    (9000, 7, H100, ("sinkhorn_cluster", 8)),
+    (37, 1200, H100, ("sinkhorn_cluster", 8)),
+    (613, 487, H100, ("sinkhorn_cluster", 8)),
+    # edges. 8 CTAs: 83 rows of 664 floats, u, v and two partials
+    # 4·(83·664 + 84 + 3·664) = 228 752 B fit; at 665 (rows of 668 floats)
+    # 4·(84·668 + 84 + 3·668) = 232 896 B do not, and 16 CTAs take it
+    (664, 664, H100, ("sinkhorn_cluster", 8)),
+    (665, 665, H100, ("sinkhorn_cluster", 16)),
+    # 16 CTAs: 4·(59·936 + 60 + 3·936) = 232 368 B fit; at 937
+    # 4·(59·940 + 60 + 3·940) = 233 360 B do not: the card route, 118 CTAs
+    # of ceil(937/132) = 8 rows
+    (936, 936, H100, ("sinkhorn_cluster", 16)),
+    (937, 937, H100, ("sinkhorn_card", 118)),
+    # card: 20 rows of 2640 floats, u, v and 512 float4 of reduction
+    # buffer, 4·(20·2640 + 20 + 2640 + 2048) = 230 032 B fit; at 2641
+    # 4·(21·2644 + 24 + 2644 + 2048) = 240 960 B do not
+    (2640, 2640, H100, ("sinkhorn_card", 132)),
+    (2641, 2641, H100, ("sinkhorn_stream", 0)),
+    # a card whose clusters stop at 8 (or below) gives 665² to the card
+    # route and 181² too
+    (665, 665, (232448, 132, 8), ("sinkhorn_card", 111)),
+    (181, 181, (232448, 132, 4), ("sinkhorn_card", 91)),
+    # few rows, long rows: 10 CTAs of one row each
+    (10, 25000, H100, ("sinkhorn_card", 10)),
+])
+def test_route_by_size(m, n, card, want):
+    assert kernel_mod.sinkhorn_route(m, n, *card) == want
