@@ -5,8 +5,9 @@
     python3 chip_smoke.py --parent DIR
 
 ``--parent DIR`` (a checkout of an earlier commit) also times that
-commit's dense Sinkhorn kernel (K4) in phase 8 on the same inputs, in a
-child process, in the order parent, this tree, this tree, parent.
+commit's dense Sinkhorn kernel (K4) in phase 8 on the same inputs against
+this tree's, each tree in a child process of its own, in the order
+parent, this tree, this tree, parent.
 
 Phases; any failure raises and exits non-zero with no result line:
 
@@ -309,12 +310,12 @@ def time_sinkhorn_child(inputs_path: str, src: str) -> int:
     return 0
 
 
-def parent_sinkhorn_ms(parent: Path, inputs_path: Path) -> dict:
-    """:func:`sinkhorn_ms` of the checkout at ``parent``, in a child
-    process (both trees' packages are named repro_torch)."""
+def tree_sinkhorn_ms(tree: Path, inputs_path: Path) -> dict:
+    """:func:`sinkhorn_ms` of the checkout at ``tree``, in a child process
+    (two trees' packages are both named repro_torch)."""
     out = subprocess.run(
         [sys.executable, str(Path(__file__).resolve()), "--time-sinkhorn",
-         str(inputs_path), "--src", str(parent / "src")],
+         str(inputs_path), "--src", str(tree / "src")],
         capture_output=True, text=True, check=True, timeout=600)
     return json.loads(out.stdout.strip().splitlines()[-1])
 
@@ -418,7 +419,8 @@ def main(parent: Path | None = None) -> int:
               gw_cost.gw_cost_plain(A, B, Tg, loss),
               gw_ref.gw_cost_error_scale(A, B, Tg, loss), rtol=GW_COST_RTOL)
     for m, n, variant in ((150, 173, "sinkhorn_cluster"),
-                          (800, 700, "sinkhorn_cluster"),
+                          (700, 690, "sinkhorn_cluster"),
+                          (16, 2001, "sinkhorn_cluster"),     # 8 CTAs
                           (1531, 1201, "sinkhorn_card"),
                           (3001, 2999, "sinkhorn_stream")):
         a, b = rand(m, lo=0.1), rand(n, lo=0.1)
@@ -919,18 +921,19 @@ def main(parent: Path | None = None) -> int:
         "bound_by": bound_by, "library_ms": None})
 
     # the three sinkhorn routes at their entry-point shapes, H = 50; with
-    # --parent, the parent's kernel on the same inputs, before and after
+    # --parent, the parent's kernel and this tree's on the same inputs,
+    # each in a child process, in turns
     k4_inputs = {variant: path[:3] for variant, path in sinkhorn_paths.items()}
-    k4_parent = []
+    k4_ms = sinkhorn_ms(torch, sinkhorn, k4_inputs)
+    k4_turns = []
     if parent is not None:
         inputs_path = ROOT / "build" / "sinkhorn_inputs.pt"
         inputs_path.parent.mkdir(parents=True, exist_ok=True)
         torch.save({k: tuple(x.cpu() for x in v)
                     for k, v in k4_inputs.items()}, inputs_path)
-        k4_parent.append(parent_sinkhorn_ms(parent, inputs_path))
-    k4_ms = [sinkhorn_ms(torch, sinkhorn, k4_inputs) for _ in range(2)]
-    if parent is not None:
-        k4_parent.append(parent_sinkhorn_ms(parent, inputs_path))
+        for name, tree in (("parent", parent), ("change", ROOT),
+                           ("change", ROOT), ("parent", parent)):
+            k4_turns.append({name: tree_sinkhorn_ms(tree, inputs_path)})
     k4_routes = {}
     for variant, (sa, sb, sK, count, err) in sinkhorn_paths.items():
         m, n = sK.shape
@@ -945,9 +948,7 @@ def main(parent: Path | None = None) -> int:
                 if name == "sinkhorn_cluster" else
                 sinkhorn.card_bytes(m, n, ctas) if name == "sinkhorn_card"
                 else 1024),
-            "barriers_per_call": sinkhorn.barriers(name, SINKHORN_ITERS),
-            "barrier_kind": ("cluster" if name == "sinkhorn_cluster"
-                             else "grid")}
+            "barriers_per_call": sinkhorn.barriers(name, SINKHORN_ITERS)}
         plain_ms = time_ms(torch, lambda: sinkhorn.sinkhorn_plain(
             sa, sb, sK, SINKHORN_ITERS), 3, warmup=1)
         bound_ms, bound_by = bound(4 * (m + n + 2 * m * n),
@@ -957,12 +958,11 @@ def main(parent: Path | None = None) -> int:
             "source": "src/repro_torch/csrc/sinkhorn.cu",
             "replaces": "src/repro/kernels/sinkhorn/sinkhorn.py:44",
             "launches": count, "max_abs_err": err,
-            "ms": k4_ms[0][variant], "plain_ms": plain_ms,
+            "ms": k4_ms[variant], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     print(json.dumps({"sinkhorn_routes": k4_routes}))
-    print(json.dumps({"sinkhorn_ms": {
-        "order": "parent, change, change, parent" if parent else "change",
-        "change": k4_ms, "parent": k4_parent}}))
+    if k4_turns:
+        print(json.dumps({"sinkhorn_ms_parent_vs_change": k4_turns}))
 
     # flash attention at zamba2-7b's shape (the main path's) and, off the
     # path, llama3-8b's attention shape; bf16, B = 1, S = 4096

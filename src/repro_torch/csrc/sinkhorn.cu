@@ -22,24 +22,32 @@
 // (two matvecs per iteration): at the grid path's 181 x 181, H = 50, that is
 // 0.26 MB and 6.6 MFLOP, well under a microsecond at 3.35 TB/s or
 // 67 TFLOP/s. What rules is latency: 2H dependent half-steps, each a
-// reduction over the whole of K that ends in a barrier.
+// reduction over the whole of K that ends in a barrier; and once K is held
+// in shared memory, that memory's rate (128 B a cycle an SM), which each
+// half-step's pass over K's band takes.
 //
 // Design: three kernels, one launch per call, chosen by size (the wrapper's
 // sinkhorn_route; the byte counts below are cluster_bytes / card_bytes).
 // Each keeps K where the most SMs can walk it with the fewest barriers:
 //
 // * sinkhorn_cluster_kernel (A), while K fits the shared memory of a thread
-//   block cluster of C = 8 or 16 CTAs: CTA r holds rows [r*band, (r+1)*band)
-//   of K (band = ceil(m/C)) and the whole of v in its shared memory for all
-//   H iterations. The row half-step is local. For the column half-step each
-//   CTA writes its partial column sums over its rows into one of two
-//   buffers of its own shared memory (alternating by iteration parity);
-//   after ONE cluster barrier every CTA reads all C partial vectors through
-//   distributed shared memory and adds them in rank order, so each ends up
-//   with the whole new v without a second barrier. A CTA overwrites buffer
-//   p only two iterations later, after passing a barrier that every reader
-//   of p reaches after its reads. H + 1 cluster barriers a call (the last
-//   keeps every CTA's shared memory alive until no one reads it).
+//   block cluster of C = 16 (or 8) CTAs: CTA r holds rows [r*band,
+//   (r+1)*band) of K (band = ceil(m/C)), and the whole of v, in its shared
+//   memory for all H iterations. The row half-step is local. In the column
+//   half-step each CTA sends its partial column sums over its rows to every
+//   CTA of the cluster (st.async into distributed shared memory), into the
+//   slot for its rank in one of two buffers (by iteration parity); each
+//   store counts its bytes on an mbarrier of the receiving CTA. A CTA waits
+//   on that mbarrier's phase, the one barrier of the iteration, then adds
+//   the C partial vectors from its own shared memory in rank order, so each
+//   ends up with the whole new v. A cluster barrier would do the same, but
+//   its release is a GPU-wide memory fence and its acquire empties L1, both
+//   on every iteration's critical path; the stores' completion on the
+//   mbarrier needs neither. A buffer of parity p is written again only two
+//   iterations on, by CTAs that have received every CTA's partials of the
+//   iteration between, which each sends after reading buffer p. H mbarrier
+//   waits a call, and two cluster barriers: one after the mbarriers are
+//   set up, one before exit.
 // * sinkhorn_card_kernel (B), while K fits the card's shared memory but no
 //   cluster's: a cooperative grid, at most one CTA an SM, CTA c holding a
 //   band of ceil(m/SMs) rows, loaded once. The row half-step is local; the
@@ -73,7 +81,6 @@ namespace {
 
 constexpr int kThreads = 512;                 // A and B
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxGroups = 16;                // B: CTA groups a column sum
 constexpr int kStreamThreads = 256;           // C
 constexpr float kFltMin = 1.17549435e-38f;    // smallest normal float32
 
@@ -83,14 +90,14 @@ __host__ __device__ constexpr long long round4(long long x) {
 
 // Shared memory of A and B, in bytes; kept in step with the wrapper's
 // cluster_bytes / card_bytes, which choose the route.
-long long cluster_bytes(long long m, long long n, long long ctas) {
-  const long long band = (m + ctas - 1) / ctas, ld = round4(n);
-  return 4 * (band * ld + round4(band) + 3 * ld);   // K, u, v, 2 partials
-}
-
 long long card_bytes(long long m, long long n, long long ctas) {
   const long long band = (m + ctas - 1) / ctas, ld = round4(n);
-  return 4 * (band * ld + round4(band) + ld + 4LL * kThreads);  // + red
+  return 4 * (band * ld + 2 * round4(band) + 2 * ld);   // K, u, a, v, b
+}
+
+long long cluster_bytes(long long m, long long n, long long ctas) {
+  // + the partials of every CTA, two iterations' worth, and two mbarriers
+  return card_bytes(m, n, ctas) + 4 * 2 * ctas * round4(n) + 16;
 }
 
 __device__ __forceinline__ float flush(float x) {
@@ -124,26 +131,39 @@ __device__ __forceinline__ void add4(float4& acc, float4 p) {
 }
 
 // A band of `rows` rows of K in shared memory, rows `ld` floats apart
-// (zero-padded), with its scalings u and the whole of v (zero-padded).
+// (zero-padded), with its scalings u and its share of a, and the whole of v
+// and b (zero-padded). a and b sit in shared memory because every barrier
+// invalidates L1, so a read of them through L1 would wait on L2 twice an
+// iteration.
 struct Band {
   float* K;       // (rows, ld)
-  float* u;       // (round4(rows),)
+  float* u;       // (round4(band),)
+  float* a;       // (round4(band),)
   float* v;       // (ld,)
+  float* b;       // (ld,)
   long long r0;   // the band's first row of K
   int rows, n, ld;
 };
 
-__device__ Band make_band(float* smem, int band, long long r0, long long m,
-                          int n) {
+// The band starting at row r0 of an (m, n) K, in `smem`: the layout that
+// card_bytes counts, ending with b.
+__device__ __forceinline__ Band make_band(float* smem, int band, long long r0,
+                                          long long m, int n) {
   const int ld = (int)round4(n);
   const long long left = m - r0;
   const int rows = left <= 0 ? 0 : (left < band ? (int)left : band);
   float* u = smem + (long long)band * ld;
-  return {smem, u, u + round4(band), r0, rows, n, ld};
+  float* a = u + round4(band);
+  float* v = a + round4(band);
+  return {smem, u, a, v, v + ld, r0, rows, n, ld};
 }
 
-// K's band flushed into shared memory, u = 1, v = 1 (0 in the padding)
-__device__ void load_band(const Band& s, const float* __restrict__ K) {
+// K's band (flushed) and a, b into shared memory; u = 1, v = 1 (0 in the
+// padding)
+__device__ __forceinline__ void load_band(const Band& s,
+                                          const float* __restrict__ a,
+                                          const float* __restrict__ b,
+                                          const float* __restrict__ K) {
   const int count = s.rows * s.ld;
   const float* src = K + s.r0 * s.n;
 #pragma unroll 4
@@ -151,34 +171,42 @@ __device__ void load_band(const Band& s, const float* __restrict__ K) {
     const int i = e / s.ld, j = e - i * s.ld;
     s.K[e] = j < s.n ? flush(__ldg(src + (long long)i * s.n + j)) : 0.f;
   }
-  for (int i = threadIdx.x; i < s.rows; i += kThreads) s.u[i] = 1.f;
-  for (int j = threadIdx.x; j < s.ld; j += kThreads)
+  for (int i = threadIdx.x; i < s.rows; i += kThreads) {
+    s.u[i] = 1.f;
+    s.a[i] = __ldg(a + s.r0 + i);
+  }
+  for (int j = threadIdx.x; j < s.ld; j += kThreads) {
     s.v[j] = j < s.n ? 1.f : 0.f;
+    s.b[j] = j < s.n ? __ldg(b + j) : 0.f;
+  }
 }
 
 // u = a / (K v) on the band's rows: a warp a row, a lane a strided set of
-// 4-column groups, then a shuffle tree over the lanes
-__device__ void row_pass(const Band& s, const float* __restrict__ a) {
+// 4-column groups summed in four running sums (one a column of the group),
+// then a shuffle tree over the lanes
+__device__ __forceinline__ void row_pass(const Band& s) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nq = s.ld / 4;
   const float4* v4 = reinterpret_cast<const float4*>(s.v);
   for (int i = warp; i < s.rows; i += kWarps) {
     const float4* k4 = reinterpret_cast<const float4*>(s.K + i * s.ld);
-    float acc = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
     for (int q = lane; q < nq; q += 32) {
       const float4 k = k4[q], v = v4[q];
-      acc += fmul_ftz(k.x, v.x);
-      acc += fmul_ftz(k.y, v.y);
-      acc += fmul_ftz(k.z, v.z);
-      acc += fmul_ftz(k.w, v.w);
+      acc.x += fmul_ftz(k.x, v.x);
+      acc.y += fmul_ftz(k.y, v.y);
+      acc.z += fmul_ftz(k.z, v.z);
+      acc.w += fmul_ftz(k.w, v.w);
     }
-    acc = warp_sum(acc);
-    if (lane == 0) s.u[i] = safe_div(__ldg(a + s.r0 + i), acc);
+    const float sum = warp_sum((acc.x + acc.y) + (acc.z + acc.w));
+    if (lane == 0) s.u[i] = safe_div(s.a[i], sum);
   }
 }
 
-// out[q] = the band's share of (K^T u) for columns 4q..4q+3, rows in order
-__device__ void col_pass(const Band& s, float4* out) {
+// emit(q, the band's share of (K^T u) for columns 4q..4q+3, rows in order)
+template <class Emit>
+__device__ __forceinline__ void col_pass(const Band& s, Emit emit) {
   const int nq = s.ld / 4;
   for (int q = threadIdx.x; q < nq; q += kThreads) {
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -191,22 +219,20 @@ __device__ void col_pass(const Band& s, float4* out) {
       acc.z += fmul_ftz(k.z, u);
       acc.w += fmul_ftz(k.w, u);
     }
-    out[q] = acc;
+    emit(q, acc);
   }
 }
 
-// v[4q..4q+3] = b / den, 0 in the padding
-__device__ __forceinline__ float4 divide4(const float* __restrict__ b, int n,
-                                          int q, float4 den) {
-  const int j = 4 * q;
-  return make_float4(j < n ? safe_div(__ldg(b + j), den.x) : 0.f,
-                     j + 1 < n ? safe_div(__ldg(b + j + 1), den.y) : 0.f,
-                     j + 2 < n ? safe_div(__ldg(b + j + 2), den.z) : 0.f,
-                     j + 3 < n ? safe_div(__ldg(b + j + 3), den.w) : 0.f);
+// v[4q..4q+3] = b / den (0 in the padding, where b is 0)
+__device__ __forceinline__ float4 divide4(const Band& s, int q, float4 den) {
+  const float4 b = reinterpret_cast<const float4*>(s.b)[q];
+  return make_float4(safe_div(b.x, den.x), safe_div(b.y, den.y),
+                     safe_div(b.z, den.z), safe_div(b.w, den.w));
 }
 
 // the band's rows of T = diag(u) K diag(v)
-__device__ void write_band(const Band& s, float* __restrict__ T) {
+__device__ __forceinline__ void write_band(const Band& s,
+                                           float* __restrict__ T) {
   const int count = s.rows * s.n;
   float* dst = T + s.r0 * s.n;
   for (int e = threadIdx.x; e < count; e += kThreads) {
@@ -215,40 +241,108 @@ __device__ void write_band(const Band& s, float* __restrict__ T) {
   }
 }
 
+// Shared-memory addresses, the mbarriers and the remote stores of the
+// cluster kernel.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// the address `addr` of this CTA's shared memory has in CTA `rank`'s
+__device__ __forceinline__ unsigned peer(unsigned addr, unsigned rank) {
+  unsigned out;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;"
+      : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// the barrier's one arrival for its next phase, which then waits for
+// `bytes` of remote stores
+__device__ __forceinline__ void arm(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void wait_phase(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n\t.reg .pred done;\n"
+      "WAIT_PHASE:\n\t"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], "
+      "%1;\n\t"
+      "@!done bra WAIT_PHASE;\n}"
+      :: "r"(bar), "r"(parity) : "memory");
+}
+
+// x into shared::cluster address `addr`, counted by the mbarrier at `bar`
+// (an address in the same CTA)
+__device__ __forceinline__ void send4(unsigned addr, float4 x, unsigned bar) {
+  asm volatile(
+      "st.async.weak.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
+      "[%0], {%1, %2, %3, %4}, [%5];"
+      :: "r"(addr), "r"(__float_as_uint(x.x)), "r"(__float_as_uint(x.y)),
+         "r"(__float_as_uint(x.z)), "r"(__float_as_uint(x.w)), "r"(bar)
+      : "memory");
+}
+
+template <int CTAS>
 __global__ void __launch_bounds__(kThreads)
     sinkhorn_cluster_kernel(const float* __restrict__ a,
                             const float* __restrict__ b,
                             const float* __restrict__ K,
                             float* __restrict__ T, int m, int n, int iters) {
   cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int ctas = (int)cluster.num_blocks();
-  const int band = (m + ctas - 1) / ctas;
+  const unsigned rank = cluster.block_rank();
+  const int band = (m + CTAS - 1) / CTAS;
   extern __shared__ float4 smem4[];
   const Band s = make_band(reinterpret_cast<float*>(smem4), band,
                            (long long)rank * band, m, n);
   const int nq = s.ld / 4;
-  float4* part = reinterpret_cast<float4*>(s.v + s.ld);   // (2, nq)
+  // recv[p][r][q]: CTA r's partial column sums of iteration parity p
+  float4* recv = reinterpret_cast<float4*>(s.b + s.ld);
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(recv + 2 * CTAS * nq);
+  const unsigned bytes = 16u * CTAS * nq;     // a phase of full[p]
+  float4* v4 = reinterpret_cast<float4*>(s.v);
 
-  load_band(s, K);
-  __syncthreads();
+  load_band(s, a, b, K);
+  if (threadIdx.x == 0) {
+    for (int p = 0; p < 2; ++p) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   :: "r"(smem_u32(full + p)) : "memory");
+      if (p < iters) arm(smem_u32(full + p), bytes);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster.sync();      // every CTA's barriers are set before any store
   for (int it = 0; it < iters; ++it) {
-    row_pass(s, a);
+    const int p = it & 1;
+    row_pass(s);
     __syncthreads();
-    float4* mine = part + (it & 1) * nq;
-    col_pass(s, mine);
-    cluster.sync();    // every CTA's partials of this parity are written
-    float4* v4 = reinterpret_cast<float4*>(s.v);
+    const unsigned slot = smem_u32(recv + (p * CTAS + rank) * nq);
+    const unsigned bar = smem_u32(full + p);
+    col_pass(s, [&](int q, float4 acc) {
+#pragma unroll
+      for (int r = 0; r < CTAS; ++r)
+        send4(peer(slot + 16u * q, r), acc, peer(bar, r));
+    });
+    // the C partial vectors of this parity have all landed here; the next
+    // stores into them come two iterations on, after every CTA has sent
+    // this CTA its partials of the iteration between, which it does only
+    // after its gather below
+    wait_phase(bar, (it >> 1) & 1);
+    if (threadIdx.x == 0 && it + 2 < iters) arm(bar, bytes);
+    const float4* mine = recv + p * CTAS * nq;
     for (int q = threadIdx.x; q < nq; q += kThreads) {
-      float4 den = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int r = 0; r < ctas; ++r)
-        add4(den, cluster.map_shared_rank(mine, r)[q]);
-      v4[q] = divide4(b, n, q, den);
+      float4 den = mine[q];
+#pragma unroll
+      for (int r = 1; r < CTAS; ++r) add4(den, mine[r * nq + q]);
+      v4[q] = divide4(s, q, den);
     }
     __syncthreads();
   }
   write_band(s, T);
-  cluster.sync();      // no CTA leaves while another may read its partials
+  // no CTA leaves while its stores to another may be in flight
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n\t"
+               "barrier.cluster.wait.aligned;" ::: "memory");
 }
 
 // The partials and v are written by other blocks between grid barriers:
@@ -264,8 +358,7 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ float4 smem4[];
   const Band s = make_band(reinterpret_cast<float*>(smem4), band,
                            (long long)c * band, m, n);
-  const int nq = s.ld / 4;
-  float4* red = reinterpret_cast<float4*>(s.v + s.ld);    // (kThreads,)
+  const int nq = s.ld / 4, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float4* part4 = reinterpret_cast<float4*>(part);        // (ctas, nq)
   float4* v4g = reinterpret_cast<float4*>(vglob);         // (nq,)
   float4* v4 = reinterpret_cast<float4*>(s.v);
@@ -273,32 +366,33 @@ __global__ void __launch_bounds__(kThreads)
   const int per = (nq + ctas - 1) / ctas;
   const int q0 = min(c * per, nq), q1 = min(q0 + per, nq);
 
-  load_band(s, K);
+  load_band(s, a, b, K);
   __syncthreads();
   for (int it = 0; it < iters; ++it) {
-    row_pass(s, a);
+    row_pass(s);
     __syncthreads();
-    col_pass(s, part4 + (long long)c * nq);
+    float4* mine = part4 + (long long)c * nq;
+    col_pass(s, [&](int q, float4 acc) { mine[q] = acc; });
     grid.sync();
-    // v on the slice: group g of CTAs (g, g + groups, ...) adds in CTA
-    // order, then the groups are added in order
-    for (int base = q0; base < q1; base += kThreads) {
-      const int width = min(kThreads, q1 - base);
-      const int groups = min(kThreads / width, kMaxGroups);
-      const int tid = threadIdx.x, qo = tid % width, g = tid / width;
-      if (g < groups) {
-        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int r = g; r < ctas; r += groups)
-          add4(acc, __ldcg(part4 + (long long)r * nq + base + qo));
-        red[g * width + qo] = acc;
+    // v on the slice: a warp a 4-column group, a lane the CTAs lane,
+    // lane + 32, ... in order (four loads in flight), then a shuffle tree
+    // over the lanes
+    for (int q = q0 + warp; q < q1; q += kWarps) {
+      float4 den = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int r0 = lane; r0 < ctas; r0 += 128) {
+        float4 p[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int r = r0 + 32 * k;
+          p[k] = r < ctas ? __ldcg(part4 + (long long)r * nq + q)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) add4(den, p[k]);
       }
-      __syncthreads();
-      if (tid < width) {
-        float4 den = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int h = 0; h < groups; ++h) add4(den, red[h * width + tid]);
-        v4g[base + tid] = divide4(b, n, base + tid, den);
-      }
-      __syncthreads();   // red is reused by the next slice pass
+      den = make_float4(warp_sum(den.x), warp_sum(den.y), warp_sum(den.z),
+                        warp_sum(den.w));
+      if (lane == 0) v4g[q] = divide4(s, q, den);
     }
     grid.sync();
     for (int q = threadIdx.x; q < nq; q += kThreads) v4[q] = __ldcg(v4g + q);
@@ -388,18 +482,18 @@ extern "C" int sinkhorn_card_numbers(long long* out) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(sinkhorn_cluster_kernel,
+    err = cudaFuncSetAttribute(sinkhorn_cluster_kernel<16>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
   if (err == cudaSuccess)
-    err = set_shared_bytes((const void*)sinkhorn_cluster_kernel, smem);
+    err = set_shared_bytes((const void*)sinkhorn_cluster_kernel<16>, smem);
   if (err == cudaSuccess) {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(16);
     cfg.blockDim = dim3(kThreads);
     cfg.dynamicSmemBytes = (size_t)smem;
     err = cudaOccupancyMaxPotentialClusterSize(
-        &cluster, (const void*)sinkhorn_cluster_kernel, &cfg);
+        &cluster, (const void*)sinkhorn_cluster_kernel<16>, &cfg);
   }
   if (err != cudaSuccess) return (int)err;
   out[0] = smem;
@@ -408,19 +502,21 @@ extern "C" int sinkhorn_card_numbers(long long* out) {
   return 0;
 }
 
-// One launch of the cluster kernel: one cluster of `ctas` CTAs (8, or up
-// to 16 where the card allows non-portable sizes). Returns the cudaError_t,
-// cudaErrorInvalidValue when a CTA's band does not fit its shared memory.
+// One launch of the cluster kernel: one cluster of `ctas` CTAs, 8 or 16
+// (16 where the card allows non-portable sizes). Returns the cudaError_t,
+// cudaErrorInvalidValue for another size or when a CTA's band does not fit
+// its shared memory.
 extern "C" int sinkhorn_cluster_launch(const float* a, const float* b,
                                        const float* K, float* T, int m, int n,
                                        int ctas, int iters, void* stream) {
   if (m <= 0 || n <= 0) return 0;
-  if (ctas < 1) return (int)cudaErrorInvalidValue;
+  if (ctas != 8 && ctas != 16) return (int)cudaErrorInvalidValue;
+  auto kernel = ctas == 16 ? sinkhorn_cluster_kernel<16>
+                           : sinkhorn_cluster_kernel<8>;
   const long long bytes = cluster_bytes(m, n, ctas);
-  cudaError_t err = set_shared_bytes((const void*)sinkhorn_cluster_kernel,
-                                     bytes);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(sinkhorn_cluster_kernel,
+  cudaError_t err = set_shared_bytes((const void*)kernel, bytes);
+  if (err == cudaSuccess && ctas > 8)
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
   if (err != cudaSuccess) return (int)err;
@@ -436,8 +532,7 @@ extern "C" int sinkhorn_cluster_launch(const float* a, const float* b,
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, sinkhorn_cluster_kernel, a, b, K, T, m, n,
-                           iters);
+  err = cudaLaunchKernelEx(&cfg, kernel, a, b, K, T, m, n, iters);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -3,9 +3,10 @@
 ``csrc/sinkhorn.cu`` replaces ``sinkhorn_pallas`` with three kernels, one
 launch per call, chosen by size (:func:`sinkhorn_route`):
 
-- ``sinkhorn_cluster`` — one thread block cluster of 8 or 16 CTAs keeps K
-  in the CTAs' shared memory for all H iterations, one band of rows each,
-  with one cluster barrier an iteration; taken while a band fits a CTA;
+- ``sinkhorn_cluster`` — one thread block cluster of 16 (or 8) CTAs keeps
+  K in the CTAs' shared memory for all H iterations, one band of rows
+  each; the CTAs exchange partial column sums through distributed shared
+  memory, one mbarrier wait an iteration; taken while a band fits a CTA;
 - ``sinkhorn_card`` — a cooperative grid of at most one CTA an SM keeps K
   in the shared memory of the whole card, with two grid barriers an
   iteration; taken while a band of ceil(m / SMs) rows fits a CTA;
@@ -31,7 +32,7 @@ from repro_torch.kernels.sinkhorn.ref import sinkhorn_ref
 LAUNCHES = {"sinkhorn_cluster": 0, "sinkhorn_card": 0, "sinkhorn_stream": 0}
 
 THREADS = 512                # a CTA of the cluster and card kernels
-CLUSTER_SIZES = (8, 16)      # 8 is portable; 16 needs the card's consent
+CLUSTER_SIZES = (16, 8)      # 16 needs the card's consent; 8 is portable
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
@@ -45,18 +46,17 @@ def _round4(x: int) -> int:
     return (x + 3) // 4 * 4
 
 
-def cluster_bytes(m: int, n: int, ctas: int) -> int:
-    """Shared memory of a cluster-kernel CTA: its band of ceil(m/ctas) rows
-    of K (rows padded to 4 floats), u, v and two partial column sums."""
-    band, ld = -(-m // ctas), _round4(n)
-    return 4 * (band * ld + _round4(band) + 3 * ld)
-
-
 def card_bytes(m: int, n: int, ctas: int) -> int:
-    """Shared memory of a card-kernel CTA: its band of K, u, v and the
-    column reduction's buffer of THREADS float4."""
+    """Shared memory of a card-kernel CTA: its band of ceil(m/ctas) rows of
+    K (rows padded to 4 floats), u and a on the band, v and b."""
     band, ld = -(-m // ctas), _round4(n)
-    return 4 * (band * ld + _round4(band) + ld + 4 * THREADS)
+    return 4 * (band * ld + 2 * _round4(band) + 2 * ld)
+
+
+def cluster_bytes(m: int, n: int, ctas: int) -> int:
+    """Shared memory of a cluster-kernel CTA: a card-kernel CTA's, the
+    partial column sums of every CTA of two iterations, two mbarriers."""
+    return card_bytes(m, n, ctas) + 4 * 2 * ctas * _round4(n) + 16
 
 
 def sinkhorn_route(m: int, n: int, smem_per_block: int, sms: int,
@@ -65,8 +65,10 @@ def sinkhorn_route(m: int, n: int, smem_per_block: int, sms: int,
     sizes the grid), from the card's numbers: the shared memory one block
     may use, its SMs and its largest cluster.
 
-    The smallest cluster whose bands fit a CTA; else the card kernel, with
-    bands of ceil(m / sms) rows, if they fit; else the stream kernel.
+    The largest cluster the card allows whose bands fit a CTA (16 CTAs
+    halve the rows each walks, for 16 partial vectors instead of 8 to
+    send and add); else the card kernel, with bands of ceil(m / sms) rows,
+    if they fit; else the stream kernel.
     """
     for ctas in CLUSTER_SIZES:
         if ctas <= max_cluster and cluster_bytes(m, n, ctas) <= smem_per_block:
@@ -77,9 +79,11 @@ def sinkhorn_route(m: int, n: int, smem_per_block: int, sms: int,
     return "sinkhorn_stream", 0
 
 
-def barriers(route: str, iters: int) -> int:
-    """Cluster (cluster route) or grid barriers a call waits at."""
-    return iters + 1 if route == "sinkhorn_cluster" else 2 * iters
+def barriers(route: str, iters: int) -> dict:
+    """The barriers a call of ``route`` waits at, by kind."""
+    if route == "sinkhorn_cluster":
+        return {"mbarrier_waits": iters, "cluster_barriers": 2}
+    return {"grid_barriers": 2 * iters}
 
 
 @functools.lru_cache(maxsize=None)

@@ -277,11 +277,12 @@ def _sinkhorn_close(got, want):
     (37, 1200, 20, "sinkhorn_cluster"), (181, 181, 0, "sinkhorn_cluster"),
     (613, 487, 30, "sinkhorn_cluster"), (2048, 2048, 3, "sinkhorn_card"),
     (9000, 7, 10, "sinkhorn_cluster"),
-    # each side of each route boundary: 8 -> 16 CTAs a cluster, cluster ->
+    # each side of each route boundary: 16 -> 8 CTAs a cluster, cluster ->
     # card, card -> stream
-    (664, 664, 7, "sinkhorn_cluster"), (665, 665, 7, "sinkhorn_cluster"),
-    (936, 936, 7, "sinkhorn_cluster"), (937, 937, 7, "sinkhorn_card"),
-    (2640, 2640, 4, "sinkhorn_card"), (2641, 2641, 4, "sinkhorn_stream"),
+    (16, 1660, 7, "sinkhorn_cluster"), (16, 1661, 7, "sinkhorn_cluster"),
+    (16, 2904, 7, "sinkhorn_cluster"), (16, 2905, 7, "sinkhorn_card"),
+    (724, 724, 7, "sinkhorn_cluster"), (725, 725, 7, "sinkhorn_card"),
+    (2636, 2636, 4, "sinkhorn_card"), (2637, 2637, 4, "sinkhorn_stream"),
     # m a multiple of neither 16 nor the card route's 128 CTAs; iters = 0
     # on the card and stream routes
     (2047, 1999, 6, "sinkhorn_card"), (2048, 2048, 0, "sinkhorn_card"),
@@ -299,14 +300,23 @@ def test_sinkhorn_matches_plain(dev, m, n, iters, kernel):
 
 
 def test_sinkhorn_clusters_of_16_on_the_h100(dev):
-    """The card allows clusters of 16 CTAs, which the cases above between
-    665² and 936² take."""
+    """The card allows clusters of 16 CTAs, which the cluster cases above
+    take (all but two of 8) and which a cluster launch of 8 runs as well."""
     assert sinkhorn.card_numbers(dev.index or 0)[2] >= 16
-    assert sinkhorn.route(665, 665, dev) == ("sinkhorn_cluster", 16)
+    assert sinkhorn.route(181, 181, dev) == ("sinkhorn_cluster", 16)
+    a, b, K = _sinkhorn_inputs(181, 181, 4, dev)
+    want = sinkhorn.sinkhorn_plain(a, b, K, 30)
+    for ctas in (8, 16):
+        T = torch.empty_like(K)
+        assert sinkhorn._lib().sinkhorn_cluster_launch(
+            a.data_ptr(), b.data_ptr(), K.data_ptr(), T.data_ptr(), 181, 181,
+            ctas, 30, torch.cuda.current_stream().cuda_stream) == 0
+        torch.cuda.synchronize()
+        _sinkhorn_close(T, want)
 
 
 @pytest.mark.parametrize("m,n,kernel", [
-    (181, 181, "sinkhorn_cluster"), (800, 700, "sinkhorn_cluster"),
+    (181, 181, "sinkhorn_cluster"), (700, 690, "sinkhorn_cluster"),
     (2047, 1999, "sinkhorn_card"), (3001, 2999, "sinkhorn_stream")])
 def test_sinkhorn_repeats_bit_for_bit(dev, m, n, kernel):
     """Sums in a fixed order, no atomics: two launches give the same bits."""

@@ -2,15 +2,19 @@
 
 ``repro_torch.kernels.sinkhorn.ops.sinkhorn`` runs its plain version with
 ``device="cpu"`` (the dense core loop at tol=0, with the reference's
-subnormal flush). It is held against ``repro.kernels.sinkhorn.ops.sinkhorn`` (the
-Pallas kernel in interpret mode below the reference's 8 MiB VMEM gate,
-its jnp loop above it) and against the reference's ``sinkhorn_ref``, on
+subnormal flush). It is held against ``repro.kernels.sinkhorn.ops.sinkhorn``
+(the Pallas kernel in interpret mode below the reference's 8 MiB VMEM
+gate, its jnp loop above it) and against the reference's ``sinkhorn_ref``, on
 the reference's own sweep shapes and iteration counts, numpy-seeded.
 
 Tolerance: rtol 1e-5 plus atol 1e-6 of the coupling's largest entry. Both
 sides run the same fp32 iteration and differ in the order of each
 matvec's sum, which the scaling iterations carry along but do not amplify
 (Sinkhorn's map is a contraction in the Hilbert metric).
+
+It also holds the route function (which of the three CUDA kernels takes a
+K of a given size) to the H100's numbers, and the entry point's device
+rule: the card unless ``device`` is given, an error with neither.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -117,35 +121,44 @@ H100 = (232448, 132, 16)
 @pytest.mark.parametrize("m,n,card,want", [
     # the main shapes: the grid path's 181² K, the entry point's 2048², and
     # a 3000² K (36 MB) above the card's shared memory
-    (181, 181, H100, ("sinkhorn_cluster", 8)),
+    (181, 181, H100, ("sinkhorn_cluster", 16)),
     (2048, 2048, H100, ("sinkhorn_card", 128)),
     (3000, 3000, H100, ("sinkhorn_stream", 0)),
     # the cuda tests' shapes
-    (1, 1, H100, ("sinkhorn_cluster", 8)),
-    (9000, 7, H100, ("sinkhorn_cluster", 8)),
-    (37, 1200, H100, ("sinkhorn_cluster", 8)),
-    (613, 487, H100, ("sinkhorn_cluster", 8)),
-    # edges. 8 CTAs: 83 rows of 664 floats, u, v and two partials
-    # 4·(83·664 + 84 + 3·664) = 228 752 B fit; at 665 (rows of 668 floats)
-    # 4·(84·668 + 84 + 3·668) = 232 896 B do not, and 16 CTAs take it
-    (664, 664, H100, ("sinkhorn_cluster", 8)),
-    (665, 665, H100, ("sinkhorn_cluster", 16)),
-    # 16 CTAs: 4·(59·936 + 60 + 3·936) = 232 368 B fit; at 937
-    # 4·(59·940 + 60 + 3·940) = 233 360 B do not: the card route, 118 CTAs
-    # of ceil(937/132) = 8 rows
-    (936, 936, H100, ("sinkhorn_cluster", 16)),
-    (937, 937, H100, ("sinkhorn_card", 118)),
-    # card: 20 rows of 2640 floats, u, v and 512 float4 of reduction
-    # buffer, 4·(20·2640 + 20 + 2640 + 2048) = 230 032 B fit; at 2641
-    # 4·(21·2644 + 24 + 2644 + 2048) = 240 960 B do not
-    (2640, 2640, H100, ("sinkhorn_card", 132)),
-    (2641, 2641, H100, ("sinkhorn_stream", 0)),
-    # a card whose clusters stop at 8 (or below) gives 665² to the card
-    # route and 181² too
-    (665, 665, (232448, 132, 8), ("sinkhorn_card", 111)),
+    (1, 1, H100, ("sinkhorn_cluster", 16)),
+    (9000, 7, H100, ("sinkhorn_cluster", 16)),
+    (37, 1200, H100, ("sinkhorn_cluster", 16)),
+    (613, 487, H100, ("sinkhorn_cluster", 16)),
+    # edges. A cluster CTA holds its band of K (rows padded to 4 floats), u
+    # and a on the band, v and b, both iterations' partials of every CTA
+    # and two mbarriers: 16 CTAs of 46 rows of 724 floats,
+    # 4·(46·724 + 2·48 + 2·724 + 32·724) + 16 = 232 080 B fit; at 725
+    # (rows of 728 floats) 4·(46·728 + 2·48 + 2·728 + 32·728) + 16 =
+    # 233 360 B do not, nor do 8 CTAs: the card route, 121 CTAs of
+    # ceil(725/132) = 6 rows
+    (724, 724, H100, ("sinkhorn_cluster", 16)),
+    (725, 725, H100, ("sinkhorn_card", 121)),
+    # wide and short, 16 rows: 16 CTAs of one row, 4·(35·1660 + 8) + 16 =
+    # 232 448 B fit exactly; at 1661 (rows of 1664) 8 CTAs of two rows,
+    # 4·(20·1664 + 8) + 16 = 133 168 B, take it, up to 2904 (232 368 B);
+    # at 2905 4·(20·2908 + 8) + 16 = 232 688 B do not: the card route
+    (16, 1660, H100, ("sinkhorn_cluster", 16)),
+    (16, 1661, H100, ("sinkhorn_cluster", 8)),
+    (16, 2904, H100, ("sinkhorn_cluster", 8)),
+    (16, 2905, H100, ("sinkhorn_card", 16)),
+    # card: 20 rows of 2636 floats, u, a, v and b,
+    # 4·(20·2636 + 2·20 + 2·2636) = 232 128 B fit; at 2637 (rows of 2640
+    # floats) 4·(20·2640 + 2·20 + 2·2640) = 232 480 B do not
+    (2636, 2636, H100, ("sinkhorn_card", 132)),
+    (2637, 2637, H100, ("sinkhorn_stream", 0)),
+    # a card whose clusters stop at 8 takes 181² on 8 CTAs and gives 609²
+    # (4·(77·612 + 2·80 + 18·612) + 16 = 233 216 B on 8) to the card
+    # route; below 8, no cluster at all
+    (181, 181, (232448, 132, 8), ("sinkhorn_cluster", 8)),
+    (609, 609, (232448, 132, 8), ("sinkhorn_card", 122)),
     (181, 181, (232448, 132, 4), ("sinkhorn_card", 91)),
     # few rows, long rows: 10 CTAs of one row each
-    (10, 25000, H100, ("sinkhorn_card", 10)),
+    (10, 14000, H100, ("sinkhorn_card", 10)),
 ])
 def test_route_by_size(m, n, card, want):
     assert kernel_mod.sinkhorn_route(m, n, *card) == want
