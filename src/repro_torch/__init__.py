@@ -6,10 +6,13 @@ Build a :class:`QuadraticProblem` from two :class:`Geometry` objects and
 call :func:`solve`; it runs on the CUDA card unless ``device="cpu"``.
 """
 from repro_torch.api import (
+    DenseGWSolver,
     Geometry,
     GridCoupling,
     GridGWSolver,
     GWOutput,
+    LowRankCoupling,
+    LowRankGWSolver,
     QuadraticProblem,
     SparGWSolver,
     SparseCoupling,
@@ -26,10 +29,13 @@ __all__ = [
     "GWOutput",
     "SparseCoupling",
     "GridCoupling",
+    "LowRankCoupling",
     "solve",
     "select_solver",
     "SparGWSolver",
     "GridGWSolver",
+    "DenseGWSolver",
+    "LowRankGWSolver",
     "get_solver",
     "register_solver",
     "available_solvers",

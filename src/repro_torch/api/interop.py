@@ -1,10 +1,12 @@
 """Carry state between the JAX reference and the port, through numpy.
 
 For GW the state that both sides must share is the problem's data (cost
-matrices and marginals), the solver's fields, and the sampled support
-(JAX's threefry draws cannot be reproduced with a torch generator). The
-reference side hands these over as numpy arrays and a plain dict of the
-solver's fields; the port's output comes back as numpy.
+matrices or point clouds, marginals, the fused linear term, λ), the
+solver's fields, and the random draws: the sampled support, or the
+low-rank solver's init and sketch inputs (JAX's threefry draws cannot be
+reproduced with a torch generator). The reference side hands these over
+as numpy arrays and a plain dict of the solver's fields; the port's
+output comes back as numpy. A parity hook for the tests, not a feature.
 """
 from __future__ import annotations
 
@@ -12,22 +14,39 @@ import numpy as np
 import torch
 
 from repro_torch.api.geometry import Geometry
-from repro_torch.api.output import GridCoupling, GWOutput
+from repro_torch.api.output import GridCoupling, GWOutput, LowRankCoupling
 from repro_torch.api.problem import QuadraticProblem
 from repro_torch.api.solvers import get_solver
+from repro_torch.lowrank.init import LowRankDraws
 
 
-def to_problem(Cx, a, Cy, b, loss: str = "l2", device="cpu"
+def _f32(x):
+    return None if x is None else np.asarray(x, np.float32)
+
+
+def _geometry(C, w, points):
+    if C is None:
+        return Geometry.from_points(_f32(points), _f32(w))
+    return Geometry(_f32(C), _f32(w), points=_f32(points))
+
+
+def to_problem(Cx, a, Cy, b, loss: str = "l2", device="cpu", *, lam=None,
+               M=None, fused_penalty=None, points_x=None, points_y=None
                ) -> QuadraticProblem:
-    """A balanced problem on ``device`` from numpy costs and marginals."""
-    gx = Geometry(np.asarray(Cx, np.float32), np.asarray(a, np.float32))
-    gy = Geometry(np.asarray(Cy, np.float32), np.asarray(b, np.float32))
-    return QuadraticProblem(gx, gy, loss=loss).to(torch.device(device))
+    """A problem on ``device`` from numpy data: cost matrices ``Cx``, ``Cy``
+    (None for a point cloud, given as ``points_x`` / ``points_y``),
+    marginals, and the optional fused term (``M``, ``fused_penalty``) and
+    unbalanced strength ``lam``."""
+    problem = QuadraticProblem(_geometry(Cx, a, points_x),
+                               _geometry(Cy, b, points_y), loss=loss,
+                               fused_penalty=fused_penalty, M=_f32(M),
+                               lam=None if lam is None else float(lam))
+    return problem.to(torch.device(device))
 
 
 def to_solver(fields: dict, name: str = "spar_gw"):
-    """The port's config of solver ``name`` (``"spar_gw"``, ``"grid_gw"``)
-    from the reference's field values."""
+    """The port's config of solver ``name`` (``"spar_gw"``, ``"grid_gw"``,
+    ``"dense_gw"``, ``"lowrank_gw"``) from the reference's field values."""
     return get_solver(name)(**fields)
 
 
@@ -38,17 +57,34 @@ def to_support(rows, cols, device="cpu"):
             torch.tensor(np.asarray(cols), dtype=torch.int64, device=device))
 
 
+def to_lowrank_draws(device="cpu", **draws) -> LowRankDraws:
+    """The reference's low-rank draws (``start_x``, ``start_y``,
+    ``omega_x``, ``omega_y``, ``zq``, ``zr``; any subset) as tensors."""
+    out = {}
+    for name, value in draws.items():
+        dtype = torch.int64 if name.startswith("start") else torch.float32
+        out[name] = torch.tensor(np.asarray(value), dtype=dtype,
+                                 device=device)
+    return LowRankDraws(**out)
+
+
 def output_to_numpy(out: GWOutput) -> dict:
-    """The port's output as numpy arrays and Python numbers: the coupling
-    as ``rows``, ``cols`` and ``vals`` (COO) or ``block`` (grid)."""
+    """The port's output as numpy arrays and Python numbers. The coupling
+    comes as ``rows``, ``cols`` and ``vals`` (COO), ``rows``, ``cols`` and
+    ``block`` (grid), ``q``, ``r`` and ``g`` (low rank) or ``dense``."""
     st = out.status
     c = out.coupling
-    key = "block" if isinstance(c, GridCoupling) else "vals"
+    if isinstance(c, GridCoupling):
+        coupling = {"rows": c.rows, "cols": c.cols, "block": c.block}
+    elif isinstance(c, LowRankCoupling):
+        coupling = {"q": c.q, "r": c.r, "g": c.g}
+    elif isinstance(c, torch.Tensor):
+        coupling = {"dense": c}
+    else:
+        coupling = {"rows": c.rows, "cols": c.cols, "vals": c.vals}
     return {
         "value": float(out.value),
-        "rows": c.rows.cpu().numpy(),
-        "cols": c.cols.cpu().numpy(),
-        key: c[2].cpu().numpy(),
+        **{k: v.cpu().numpy() for k, v in coupling.items()},
         "errors": out.errors.cpu().numpy(),
         "converged": bool(out.converged),
         "n_iters": int(out.n_iters),

@@ -40,12 +40,50 @@ class GridCoupling(NamedTuple):
                             self.block, accumulate=True)
 
 
+class LowRankCoupling(NamedTuple):
+    """Factored coupling T = Q diag(1/g) Rᵀ (Scetbon et al., 2021/22).
+
+    Storage is O((m + n)·r): ``q`` (m, r) with row sums ≈ a, ``r`` (n, r)
+    with row sums ≈ b, both column sums ≈ ``g``. The coupling is dense but
+    never materialized by the solver; ``todense`` is for small problems.
+    """
+    q: Any   # (m, r) float32 — left factor, Q 1_r ≈ a
+    r: Any   # (n, r) float32 — right factor, R 1_r ≈ b
+    g: Any   # (r,) float32 — shared inner marginal
+
+    @property
+    def rank(self) -> int:
+        return self.g.shape[-1]
+
+    def apply(self, x, axis: int = 0):
+        """``T @ x`` (axis=0) or ``Tᵀ @ x`` (axis=1) in O((m + n)·r);
+        ``x`` is a vector or an (·, k) stack of vectors."""
+        left, right = (self.q, self.r) if axis == 0 else (self.r, self.q)
+        y = right.t() @ x                                  # (r,) or (r, k)
+        y = y / (self.g[:, None] if y.ndim > 1 else self.g)
+        return left @ y
+
+    def marginals(self, m: int = None, n: int = None):
+        """(mu, nu) of T itself, T 1 = Q diag(1/g) (Rᵀ 1), in O((m + n)·r)
+        (not the factors' row sums, which differ by what the inner
+        projection left of its violation)."""
+        mu = self.q @ (self.r.sum(dim=0) / self.g)
+        nu = self.r @ (self.q.sum(dim=0) / self.g)
+        return mu, nu
+
+    def todense(self, m: int = None, n: int = None):
+        """The (m, n) coupling (small problems only; the shape follows
+        from the factors, the arguments match the other containers)."""
+        return (self.q / self.g[None, :]) @ self.r.t()
+
+
 @dataclass(frozen=True)
 class GWOutput:
     """Result of one GW solve.
 
     value     — 0-d tensor: the objective estimate
-    coupling  — a ``SparseCoupling`` or a ``GridCoupling``
+    coupling  — a ``SparseCoupling``, a ``GridCoupling``, a dense (m, n)
+                tensor (``dense_gw``) or a ``LowRankCoupling``
     errors    — (outer_iters,) marginal ℓ1 error after each outer
                 iteration; NaN beyond ``n_iters`` and at rescued iterations
     converged — True iff the outer loop met its tolerance (False at tol=0)

@@ -111,6 +111,13 @@ class QuadraticProblem:
     def is_unbalanced(self) -> bool:
         return self.lam is not None
 
+    def linear_cost_dense(self):
+        """The (m, n) linear cost M (explicit, or derived from features)."""
+        if self.M is not None:
+            return self.M
+        fx, fy = self.geom_x.features, self.geom_y.features
+        return torch.sum((fx[:, None, :] - fy[None, :, :]) ** 2, dim=-1)
+
     def linear_cost_at(self, rows, cols):
         """M gathered on a COO support — O(s·d), never materializes (m, n)."""
         if self.M is not None:

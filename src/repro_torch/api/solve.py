@@ -23,7 +23,7 @@ _LOWRANK_LOSSES = ("l2", "kl")
 
 # solvers of the reference that the port does not have yet, with the
 # ROADMAP queue-1 item that brings each
-_NOT_PORTED = {"dense_gw": 8, "lowrank_gw": 10, "quantized_gw": 11}
+_NOT_PORTED = {"quantized_gw": 11}
 
 
 def _solver_class(name: str):
@@ -62,21 +62,30 @@ def select_solver(problem: QuadraticProblem):
 
 
 def solve(problem: QuadraticProblem, solver: Union[str, object, None] = None,
-          generator=None, support=None, device=None):
+          generator=None, support=None, device=None, draws=None):
     """Solve a QuadraticProblem; returns a ``GWOutput``.
 
     solver    — a solver config instance, a registry name (that solver's
                 ``default_config`` for the problem size), or None to
                 auto-select (:func:`select_solver`)
-    generator — ``torch.Generator`` for the support draw
-    support   — ``(rows, cols)`` index arrays fixing the support instead
-                of drawing it (parity tests inject the reference's draw)
+    generator — ``torch.Generator`` for the support draw (``lowrank_gw``:
+                its init and sketches); ``dense_gw`` draws nothing
+    support   — ``(rows, cols)`` index arrays fixing the sampled support
+                of ``spar_gw`` / ``grid_gw`` instead of drawing it
     device    — where to run; default the CUDA card (raises without one).
                 ``"cpu"`` runs the plain PyTorch versions of the kernels.
+    draws     — ``lowrank_gw`` only: a ``repro_torch.lowrank.LowRankDraws``
+                fixing its random inputs instead of drawing them
+
+    ``support`` and ``draws`` are parity hooks: the tests inject the JAX
+    reference's draws (threefry cannot be reproduced in torch) through
+    ``repro_torch.api.interop``.
     """
     dev = dispatch.resolve_device(device)
     if solver is None:
         solver = select_solver(problem)
     elif isinstance(solver, str):
         solver = _solver_class(solver).default_config(max(problem.shape))
-    return solver.run(problem.to(dev), generator=generator, support=support)
+    kw = {} if draws is None else {"draws": draws}
+    return solver.run(problem.to(dev), generator=generator, support=support,
+                      **kw)

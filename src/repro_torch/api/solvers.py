@@ -1,9 +1,9 @@
-"""Solver configurations + runners (counterpart of repro.api.solvers: the
-balanced spar and grid parts).
+"""Solver configurations + runners (counterpart of repro.api.solvers).
 
 Each solver is a frozen dataclass registered in a name registry
 (``get_solver`` / ``available_solvers``); ``run(problem, generator,
-support)`` dispatches on the problem's structure. The outer loop goes
+support)`` dispatches on the problem's structure: ``lam`` set → the
+unbalanced variant, a linear term → the fused one. The outer loop goes
 through :func:`repro_torch.api.driver.pga_loop`.
 """
 from __future__ import annotations
@@ -18,13 +18,17 @@ from repro_torch.api.driver import pga_loop
 from repro_torch.api.output import GridCoupling, GWOutput, SparseCoupling
 from repro_torch.core import sampling
 from repro_torch.core.grid_gw import _dedup_marginal, grid_cost
+from repro_torch.core.gw import dense_cost, gw_objective
 from repro_torch.core.sinkhorn import (
     sinkhorn,
     sinkhorn_log,
+    sinkhorn_unbalanced_log,
     sparse_sinkhorn,
     sparse_sinkhorn_logdomain,
+    sparse_sinkhorn_unbalanced_log,
 )
-from repro_torch.core.utils import flush_subnormal, log_floor
+from repro_torch.core.spar_ugw import _marginal_penalty
+from repro_torch.core.utils import flush_subnormal, log_floor, quadratic_kl
 from repro_torch.kernels.spar_cost.ops import make_spar_cost_fn
 
 _REGISTRY: dict = {}
@@ -55,9 +59,14 @@ def available_solvers():
     return tuple(sorted(_REGISTRY))
 
 
+def _coo_marginals(T, rows, cols, m: int, n: int):
+    mu = torch.zeros(m, dtype=T.dtype, device=T.device).index_add_(0, rows, T)
+    nu = torch.zeros(n, dtype=T.dtype, device=T.device).index_add_(0, cols, T)
+    return mu, nu
+
+
 def _coo_marginal_err(T, rows, cols, a, b):
-    mu = torch.zeros_like(a).index_add_(0, rows, T)
-    nu = torch.zeros_like(b).index_add_(0, cols, T)
+    mu, nu = _coo_marginals(T, rows, cols, a.shape[0], b.shape[0])
     return torch.sum(torch.abs(mu - a)) + torch.sum(torch.abs(nu - b))
 
 
@@ -118,12 +127,26 @@ def _health_kw(solver):
                 trace=solver.trace)
 
 
+def _rescaled(T_new, mT):
+    """Alg. 3 step 10: T_new rescaled to the geometric mean of its own
+    mass and the previous iterate's, sqrt(m(T) / m(T_new))·T_new."""
+    return flush_subnormal(
+        torch.sqrt(mT / torch.clamp_min(torch.sum(T_new), 1e-30)) * T_new)
+
+
+def _ugw_value(quad, mu, nu, a, b, lam):
+    """Alg. 3 step 11: ⟨C(T), T⟩ + λ KL⊗(μ||a) + λ KL⊗(ν||b)."""
+    return quad + lam * quadratic_kl(mu, a) + lam * quadratic_kl(nu, b)
+
+
 @register_solver("spar_gw")
 @dataclass(frozen=True)
 class SparGWSolver:
-    """Importance-sparsified GW — the paper's contribution (Alg. 2 / 4).
+    """Importance-sparsified GW — the paper's contribution.
 
-    ``s`` is the sampled support size (the paper uses s = 16n);
+    Covers Alg. 2 (GW), Alg. 4 (fused, the problem carries a linear term)
+    and Alg. 3 (unbalanced, the problem carries ``lam``). ``s`` is the
+    sampled support size (the paper uses s = 16n);
     ``cost_impl`` selects the O(s²) cost-assembly backend
     (kernels/spar_cost). ``max_rescues`` / ``rescue_factor`` bound the
     ε-rescue restarts on detected divergence. ``fault`` and ``trace`` are
@@ -168,9 +191,10 @@ class SparGWSolver:
                 "SparGWSolver draws a random support: pass generator="
                 "torch.Generator(...) or support=(rows, cols)")
         if problem.is_unbalanced:
-            raise NotImplementedError(
-                "unbalanced spar_gw is not ported yet (ROADMAP queue 1, "
-                "item 7)")
+            if problem.is_fused:
+                raise NotImplementedError(
+                    "fused + unbalanced GW is not implemented")
+            return self._run_unbalanced(problem, generator, support)
         return self._run_balanced(problem, generator, support)
 
     def _run_balanced(self, problem, generator, support) -> GWOutput:
@@ -209,6 +233,162 @@ class SparGWSolver:
                         errors=errors, converged=converged, n_iters=n_iters,
                         status=status, trace=trace)
 
+    def _run_unbalanced(self, problem, generator, support) -> GWOutput:
+        Cx, a = problem.geom_x.cost_matrix, problem.geom_x.weights
+        Cy, b = problem.geom_y.cost_matrix, problem.geom_y.weights
+        lam, loss, eps = float(problem.lam), problem.loss, self.epsilon
+        m, n = a.shape[0], b.shape[0]
+        scale = torch.sqrt(torch.sum(a) * torch.sum(b))
+
+        # steps 2-3: dense rank-one init and its (log-)kernel, once
+        Td = flush_subnormal(flush_subnormal(a[:, None] * b[None, :]) / scale)
+        m0 = torch.sum(Td)
+        C0 = dense_cost(Cx, Cy, Td, loss) + _marginal_penalty(
+            Td.sum(1), Td.sum(0), a, b, lam)
+        logK0 = -C0 / (eps * m0) + log_floor(Td)
+
+        # steps 4-5: sampling probability (eq. 9) and index set
+        P = sampling.unbalanced_probs(a, b, logK0, lam, eps, self.shrink)
+        if support is None:
+            rows, cols = sampling.sample_pairs_2d(generator, P, self.s)
+        else:
+            rows, cols = _injected_support(support, ((self.s,), (self.s,)),
+                                           m, n, a.device)
+        # log(s·max(p, 1e-38)) as XLA evaluates it: the floor flushes to 0
+        logw = -torch.log(self.s * flush_subnormal(P[rows, cols]))
+        T0 = flush_subnormal(flush_subnormal(a[rows] * b[cols]) / scale)
+        cost_fn = make_spar_cost_fn(Cx, Cy, rows, cols, loss,
+                                    impl=self.cost_impl, chunk=self.cost_chunk)
+
+        def step(T, rescue):
+            mT = torch.sum(T)
+            eps_bar = eps * rescue * mT     # rescue: the loop's ε escalation
+            lam_bar = lam * mT
+            mu, nu = _coo_marginals(T, rows, cols, m, n)
+            # logK = -(L@T̃ + penalty)/ε̄ + log T̃ + log w in one cost call
+            off = (-_marginal_penalty(mu, nu, a, b, lam) / eps_bar
+                   + log_floor(T) + logw)
+            logK = cost_fn((-1.0 / eps_bar) * T, off)
+            T_new = sparse_sinkhorn_unbalanced_log(
+                a, b, rows, cols, logK, lam_bar, eps_bar, m, n,
+                self.inner_iters, tol=self.inner_tol)
+            return _rescaled(T_new, mT)
+
+        err_fn = partial(_coo_marginal_err, rows=rows, cols=cols, a=a, b=b)
+        T, errors, n_iters, converged, status, trace = pga_loop(
+            step, err_fn, T0, self.outer_iters, self.tol, **_health_kw(self))
+        # Alg. 3 step 11: UGW objective on the sparse coupling
+        mu, nu = _coo_marginals(T, rows, cols, m, n)
+        value = _ugw_value(torch.sum(T * cost_fn(T)), mu, nu, a, b, lam)
+        return GWOutput(value=value, coupling=SparseCoupling(rows, cols, T),
+                        errors=errors, converged=converged, n_iters=n_iters,
+                        status=status, trace=trace)
+
+
+@register_solver("dense_gw")
+@dataclass(frozen=True)
+class DenseGWSolver:
+    """Dense EGW (reg='ent') / PGA-GW (reg='prox') — the paper's benchmark
+    (Alg. 1), O(n³) a step for decomposable losses, O(n⁴) for the others.
+
+    Handles the fused (problem linear term) and unbalanced (problem
+    ``lam``) variants; the unbalanced path always runs in the log domain.
+    Deterministic: it draws nothing, so ``solve`` needs no generator.
+    ``fault`` and ``trace`` must stay at their defaults until fault
+    injection and traces are ported.
+    """
+    reg: str = "prox"
+    epsilon: Any = 1e-2
+    outer_iters: int = 20
+    inner_iters: int = 50
+    tol: float = 0.0
+    inner_tol: float = 0.0
+    stable: bool = True
+    max_rescues: int = 2
+    rescue_factor: float = 2.0
+    fault: Any = None
+    trace: bool = False
+
+    requires_key = False
+
+    @classmethod
+    def default_config(cls, n: int):
+        return cls()
+
+    def run(self, problem, generator=None, support=None) -> GWOutput:
+        """Solve ``problem`` on its device; ``generator`` is accepted for a
+        uniform interface and unused."""
+        if support is not None:
+            raise ValueError("DenseGWSolver samples no support; "
+                             "support= does not apply")
+        if problem.is_unbalanced:
+            if problem.is_fused:
+                raise NotImplementedError(
+                    "fused + unbalanced GW is not implemented")
+            return self._run_unbalanced(problem)
+        return self._run_balanced(problem)
+
+    def _run_balanced(self, problem) -> GWOutput:
+        Cx, a = problem.geom_x.cost_matrix, problem.geom_x.weights
+        Cy, b = problem.geom_y.cost_matrix, problem.geom_y.weights
+        loss = problem.loss
+        fused = problem.is_fused
+        alpha = float(problem.fused_penalty) if fused else 1.0
+        M = problem.linear_cost_dense() if fused else None
+        T0 = flush_subnormal(a[:, None] * b[None, :])
+
+        def step(T, rescue):
+            eps = self.epsilon * rescue     # rescue: the loop's ε escalation
+            C = dense_cost(Cx, Cy, T, loss)
+            if fused:
+                C = alpha * C + (1 - alpha) * M
+            if self.stable:
+                logK = -C / eps
+                if self.reg == "prox":
+                    logK = logK + log_floor(T)
+                return sinkhorn_log(a, b, logK, self.inner_iters,
+                                    tol=self.inner_tol)
+            return sinkhorn(a, b, _plain_kernel(C, 1.0, T, eps, self.reg),
+                            self.inner_iters, tol=self.inner_tol)
+
+        err_fn = partial(_dense_marginal_err, a=a, b=b)
+        T, errors, n_iters, converged, status, trace = pga_loop(
+            step, err_fn, T0, self.outer_iters, self.tol, **_health_kw(self))
+        value = gw_objective(Cx, Cy, T, loss)
+        if fused:
+            value = alpha * value + (1 - alpha) * torch.sum(M * T)
+        return GWOutput(value=value, coupling=T, errors=errors,
+                        converged=converged, n_iters=n_iters, status=status,
+                        trace=trace)
+
+    def _run_unbalanced(self, problem) -> GWOutput:
+        Cx, a = problem.geom_x.cost_matrix, problem.geom_x.weights
+        Cy, b = problem.geom_y.cost_matrix, problem.geom_y.weights
+        lam, loss, eps = float(problem.lam), problem.loss, self.epsilon
+        T0 = flush_subnormal(flush_subnormal(a[:, None] * b[None, :])
+                             / torch.sqrt(torch.sum(a) * torch.sum(b)))
+
+        def step(T, rescue):
+            mT = torch.sum(T)
+            eps_bar = eps * rescue * mT     # rescue: the loop's ε escalation
+            lam_bar = lam * mT
+            C = dense_cost(Cx, Cy, T, loss) + _marginal_penalty(
+                T.sum(1), T.sum(0), a, b, lam)
+            logK = -C / eps_bar + log_floor(T)
+            T_new = sinkhorn_unbalanced_log(a, b, logK, lam_bar, eps_bar,
+                                            self.inner_iters,
+                                            tol=self.inner_tol)
+            return _rescaled(T_new, mT)
+
+        err_fn = partial(_dense_marginal_err, a=a, b=b)
+        T, errors, n_iters, converged, status, trace = pga_loop(
+            step, err_fn, T0, self.outer_iters, self.tol, **_health_kw(self))
+        value = _ugw_value(torch.sum(T * dense_cost(Cx, Cy, T, loss)),
+                           T.sum(1), T.sum(0), a, b, lam)
+        return GWOutput(value=value, coupling=T, errors=errors,
+                        converged=converged, n_iters=n_iters, status=status,
+                        trace=trace)
+
 
 def _grid_block_data(problem, R, C, shrink: float):
     """What a grid solve keeps for its support R × C: the sub-blocks
@@ -227,8 +407,9 @@ def _grid_block_data(problem, R, C, shrink: float):
     return CxR, CyC, aR / aR.sum(), bC / bC.sum(), w
 
 
-def _grid_plain_kernel(Cmat, w, T, eps, reg: str):
-    """The plain-domain kernel matrix of a grid step (stable=False)."""
+def _plain_kernel(Cmat, w, T, eps, reg: str):
+    """The plain-domain kernel matrix of a dense or grid step
+    (stable=False), with importance weights ``w`` (1.0 when dense)."""
     Cs = Cmat - torch.min(Cmat)        # constant shift — Sinkhorn-invariant
     K = flush_subnormal(flush_subnormal(torch.exp(-Cs / eps)) * w)
     if reg == "prox":
@@ -250,7 +431,7 @@ def _grid_pga_step(T, scale, CxR, CyC, aR, bC, w, logw, loss: str,
         if reg == "prox":
             logK = logK + log_floor(T)
         return sinkhorn_log(aR, bC, logK, inner_iters, tol=inner_tol)
-    return sinkhorn(aR, bC, _grid_plain_kernel(Cmat, w, T, eps, reg),
+    return sinkhorn(aR, bC, _plain_kernel(Cmat, w, T, eps, reg),
                     inner_iters, tol=inner_tol)
 
 

@@ -1,0 +1,50 @@
+"""Dense GW cost assembly (counterpart of ``repro.core.gw``).
+
+``dense_cost`` / ``gw_objective`` are the shared primitives of the dense
+solver and of the unbalanced SPAR-GW init: O(n²m + m²n) per call for
+decomposable ground losses (Peyré et al., 2016), a row-chunked O(m²n²)
+contraction for the others. The legacy Algorithm 1 entry points
+(``gw_dense``, ``egw``, ``pga_gw``, ``fgw_dense``) come with the shims.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import ground_cost as gc
+from repro_torch.core.utils import flush_subnormal
+
+
+def dense_cost(Cx, Cy, T, loss: str, row_chunk: int = 8):
+    """C(T)_ij = Σ_{i',j'} L(Cx_ii', Cy_jj') T_i'j'  — tensor-matrix product.
+
+    Decomposable losses use the Peyré decomposition. The others contract
+    ``row_chunk`` rows of Cx at a time: one chunk is a (row_chunk, m, n, n)
+    tensor (0.5 GiB at m = n = 256 and 8 rows).
+    """
+    dec = gc.get_decomposition(loss)
+    if dec is not None:
+        mu = T.sum(dim=1)             # row marginal
+        nu = T.sum(dim=0)             # col marginal
+        term1 = (dec.f1(Cx) @ mu)[:, None]
+        term2 = (dec.f2(Cy) @ nu)[None, :]
+        term3 = dec.h1(Cx) @ T @ dec.h2(Cy).t()
+        return term1 + term2 - term3
+    L = gc.get_loss(loss)
+    out = [torch.einsum("abcd,bd->ac",
+                        L(Cx_chunk[:, :, None, None], Cy[None, None, :, :]), T)
+           for Cx_chunk in torch.split(Cx, row_chunk, dim=0)]
+    return torch.cat(out, dim=0)
+
+
+def gw_objective(Cx, Cy, T, loss: str, row_chunk: int = 8):
+    """⟨L(Cx, Cy) ⊗ T, T⟩."""
+    return torch.sum(dense_cost(Cx, Cy, T, loss, row_chunk) * T)
+
+
+def entropic_gw_value(Cx, Cy, T, loss: str, epsilon: float):
+    """GW_ε = ⟨C(T), T⟩ + ε·H(T) for the entropic variant; entries below
+    the smallest normal count as 0, as under XLA's flush."""
+    Tf = flush_subnormal(T)
+    ent = torch.sum(torch.where(Tf > 0, Tf * torch.log(
+        torch.where(Tf > 0, Tf, torch.ones_like(Tf))), torch.zeros_like(Tf)))
+    return gw_objective(Cx, Cy, T, loss) + epsilon * ent

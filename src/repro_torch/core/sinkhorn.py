@@ -1,8 +1,9 @@
 """Sinkhorn scaling, dense and sparse (COO): the paper's Step 7.
 
-Counterpart of the balanced half of ``repro.core.sinkhorn``: the dense
-plain and log-domain loops (the grid path's s_r x s_c block) and the
-sparse ones, O(H s). Sparse segment sums are ``index_add_``; segment maxima are ``scatter_reduce("amax",
+Counterpart of ``repro.core.sinkhorn``: the dense plain and log-domain
+loops (the grid path's s_r x s_c block, the dense solver) and the sparse
+ones, O(H s), each balanced and unbalanced (Alg. 3 step 9, exponent
+ρ = λ/(λ+ε)). Sparse segment sums are ``index_add_``; segment maxima are ``scatter_reduce("amax",
 include_self=False)`` into an output initialised to -inf, so an empty
 segment keeps -inf exactly as ``jax.ops.segment_max`` gives it and takes
 the ``_NEG_INF`` branch. Indices are int64 (``scatter_reduce`` needs it).
@@ -36,8 +37,9 @@ def _finite(x):
 def _scaling_loop(body, init, iters: int, tol: float):
     """Run ``carry <- body(carry)`` for a fixed budget or to tolerance.
 
-    ``body`` maps a tuple of potential vectors to the updated tuple. The
-    update that brings the change to <= tol is kept, as in the reference.
+    ``body`` maps a tuple of potential vectors (1-D, one dtype) to the
+    updated tuple. The update that brings the change to <= tol is kept, as
+    in the reference.
     """
     carry = init
     if not tol or tol <= 0.0:
@@ -46,8 +48,8 @@ def _scaling_loop(body, init, iters: int, tol: float):
         return carry
     for _ in range(iters):
         new = body(carry)
-        delta = torch.stack([torch.max(torch.abs(n - o))
-                             for n, o in zip(new, carry)]).max()
+        # the potentials are vectors: one max over their concatenation
+        delta = torch.max(torch.abs(torch.cat(new) - torch.cat(carry)))
         carry = new
         if bool(delta <= tol):
             break
@@ -111,6 +113,45 @@ def sinkhorn_log(a, b, logK, iters: int, differentiable: bool = False,
     return flush_subnormal(torch.exp(logK + f[:, None] + g[None, :]))
 
 
+def sinkhorn_unbalanced(a, b, K, lam, eps, iters: int, tol: float = 0.0):
+    """Plain unbalanced Sinkhorn (Alg. 3 step 9): exponent λ/(λ+ε)."""
+    a, b, K = flush_subnormal(a), flush_subnormal(b), flush_subnormal(K)
+    m, n = K.shape
+    rho = lam / (lam + eps)
+    u0 = torch.ones(m, dtype=K.dtype, device=K.device)
+    v0 = torch.ones(n, dtype=K.dtype, device=K.device)
+    Kt = K.t()
+
+    def body(carry):
+        u, v = carry
+        u = flush_subnormal(safe_div(a, dense_matvec(K, v)) ** rho)
+        v = flush_subnormal(safe_div(b, dense_matvec(Kt, u)) ** rho)
+        return (u, v)
+
+    u, v = _scaling_loop(body, (u0, v0), iters, tol)
+    return flush_subnormal(flush_subnormal(u[:, None] * K) * v[None, :])
+
+
+def sinkhorn_unbalanced_log(a, b, logK, lam, eps, iters: int,
+                            tol: float = 0.0):
+    """Log-domain unbalanced Sinkhorn: f = ρ (log a - lse(logK + g))."""
+    m, n = logK.shape
+    rho = lam / (lam + eps)
+    la = log_floor(a)
+    lb = log_floor(b)
+    f0 = torch.zeros(m, dtype=logK.dtype, device=logK.device)
+    g0 = torch.zeros(n, dtype=logK.dtype, device=logK.device)
+
+    def body(carry):
+        f, g = carry
+        f = _finite(rho * (la - torch.logsumexp(logK + g[None, :], dim=1)))
+        g = _finite(rho * (lb - torch.logsumexp(logK + f[:, None], dim=0)))
+        return (f, g)
+
+    f, g = _scaling_loop(body, (f0, g0), iters, tol)
+    return flush_subnormal(torch.exp(logK + f[:, None] + g[None, :]))
+
+
 def coo_matvec(rows, cols, vals, x, out_dim: int):
     """y_i = Σ_{l: rows_l = i} vals_l * x[cols_l] — sparse K @ x."""
     prod = flush_subnormal(vals * x[cols])
@@ -165,6 +206,46 @@ def sparse_sinkhorn_logdomain(a, b, rows, cols, logvals, m: int, n: int,
         f, g = carry
         f = _finite(la - segment_logsumexp(logvals + g[cols], rows, m))
         g = _finite(lb - segment_logsumexp(logvals + f[rows], cols, n))
+        return (f, g)
+
+    f, g = _scaling_loop(body, (f0, g0), iters, tol)
+    return flush_subnormal(torch.exp(logvals + f[rows] + g[cols]))
+
+
+def sparse_sinkhorn_unbalanced(a, b, rows, cols, vals, lam, eps, m: int,
+                               n: int, iters: int, tol: float = 0.0):
+    """Plain-domain unbalanced sparse Sinkhorn (Alg. 3 step 9)."""
+    a, b, vals = flush_subnormal(a), flush_subnormal(b), flush_subnormal(vals)
+    rho = lam / (lam + eps)
+    u0 = torch.ones(m, dtype=vals.dtype, device=vals.device)
+    v0 = torch.ones(n, dtype=vals.dtype, device=vals.device)
+
+    def body(carry):
+        u, v = carry
+        u = flush_subnormal(
+            safe_div(a, coo_matvec(rows, cols, vals, v, m)) ** rho)
+        v = flush_subnormal(
+            safe_div(b, coo_matvec(cols, rows, vals, u, n)) ** rho)
+        return (u, v)
+
+    u, v = _scaling_loop(body, (u0, v0), iters, tol)
+    return flush_subnormal(flush_subnormal(u[rows] * vals) * v[cols])
+
+
+def sparse_sinkhorn_unbalanced_log(a, b, rows, cols, logvals, lam, eps,
+                                   m: int, n: int, iters: int,
+                                   tol: float = 0.0):
+    """Log-domain unbalanced sparse Sinkhorn."""
+    rho = lam / (lam + eps)
+    la = log_floor(a)
+    lb = log_floor(b)
+    f0 = torch.zeros(m, dtype=logvals.dtype, device=logvals.device)
+    g0 = torch.zeros(n, dtype=logvals.dtype, device=logvals.device)
+
+    def body(carry):
+        f, g = carry
+        f = _finite(rho * (la - segment_logsumexp(logvals + g[cols], rows, m)))
+        g = _finite(rho * (lb - segment_logsumexp(logvals + f[rows], cols, n)))
         return (f, g)
 
     f, g = _scaling_loop(body, (f0, g0), iters, tol)

@@ -23,7 +23,7 @@ def flush_subnormal(x):
 
     NaN passes through (its comparison is False), as it does under XLA.
     """
-    return torch.where(torch.abs(x) < FLT_MIN, torch.zeros_like(x), x)
+    return torch.where(torch.abs(x) < FLT_MIN, 0.0, x)
 
 
 def log_floor(x):
@@ -41,8 +41,26 @@ def safe_div(num, den):
     Inputs and output are flushed, so a subnormal denominator counts as 0
     exactly as in the reference.
     """
-    num, den = flush_subnormal(num), flush_subnormal(den)
-    pos = den > 0
-    q = torch.where(pos, num / torch.where(pos, den, torch.ones_like(den)),
-                    torch.zeros_like(num))
-    return flush_subnormal(q)
+    # den > 0 once den is flushed; where it is not, the quotient is dropped
+    pos = den >= FLT_MIN
+    return flush_subnormal(torch.where(pos, flush_subnormal(num) / den, 0.0))
+
+
+def generalized_kl(p, q):
+    """KL(p || q) = Σ p log(p/q) - m(p) + m(q) for nonnegative vectors."""
+    p, q = flush_subnormal(p), flush_subnormal(q)
+    eps = 1e-30
+    p_ = torch.clamp_min(p, eps)
+    q_ = torch.clamp_min(q, eps)
+    return (torch.sum(p * (torch.log(p_) - torch.log(q_))) - torch.sum(p)
+            + torch.sum(q))
+
+
+def quadratic_kl(p, q):
+    """KL^⊗(p || q) = KL(p ⊗ p || q ⊗ q) (Séjourné et al., 2021)."""
+    p, q = flush_subnormal(p), flush_subnormal(q)
+    mp, mq = torch.sum(p), torch.sum(q)
+    eps = 1e-30
+    cross = torch.sum(p * (torch.log(torch.clamp_min(p, eps))
+                           - torch.log(torch.clamp_min(q, eps))))
+    return 2.0 * mp * cross - mp ** 2 + mq ** 2

@@ -9,6 +9,10 @@ n_rescues``, which the solver maps onto ε. When rescue is exhausted the
 solve ends DIVERGED at the iteration of first failure. A tolerance-met
 solve whose last marginal error exceeds ``stall_err`` is STALLED.
 
+The iterate is a tensor or a tuple of tensors (the low-rank solver's
+``(Q, R, g)``); the verdict, the mass and the ``tol`` delta are taken over
+all of its leaves, as the reference's ``_tree_l1`` / ``tree_finite`` do.
+
 The loop runs on the host, one step at a time: the health verdict of each
 step is read on the host (one synchronisation per outer iteration), so no
 lane masking is needed. Fault injection and convergence traces are not
@@ -51,6 +55,19 @@ class LoopResult(NamedTuple):
     trace: Optional[Any] = None
 
 
+def _leaves(T):
+    return T if isinstance(T, (tuple, list)) else (T,)
+
+
+def _tree_l1(T):
+    return sum(torch.sum(torch.abs(x)) for x in _leaves(T))
+
+
+def tree_finite(T):
+    """0-d bool tensor: every leaf of ``T`` is everywhere finite."""
+    return torch.stack([torch.isfinite(x).all() for x in _leaves(T)]).all()
+
+
 def health_loop(step_fn: Callable, err_fn: Callable, T0, max_iters: int,
                 tol: float, *, scaled_step: bool = False,
                 max_rescues: int = 0, rescue_factor: float = 2.0,
@@ -64,8 +81,10 @@ def health_loop(step_fn: Callable, err_fn: Callable, T0, max_iters: int,
     step_fn     — one outer solver step; with ``scaled_step`` it receives
                   ``(T, scale)``, ``scale = rescue_factor**n_rescues``
     err_fn      — per-iteration diagnostic (marginal ℓ1 violation)
-    tol         — stop when sum|T_new - T| / sum|T| <= tol; 0 runs the
-                  fixed budget (``converged`` stays False)
+    T0          — the first iterate: a tensor or a tuple of tensors
+    tol         — stop when sum|T_new - T| / sum|T| (summed over the
+                  leaves) <= tol; 0 runs the fixed budget (``converged``
+                  stays False)
     max_rescues — divergence restarts before the solve ends DIVERGED
     """
     if fault is not None:
@@ -76,7 +95,7 @@ def health_loop(step_fn: Callable, err_fn: Callable, T0, max_iters: int,
             "convergence traces are not ported yet (ROADMAP queue 1, "
             "item 14)")
     errors = torch.full((max(max_iters, 0),), math.nan, dtype=torch.float32,
-                        device=T0.device)
+                        device=_leaves(T0)[0].device)
     if max_iters <= 0:
         return LoopResult(T0, errors, 0, False, SolveStatus.healthy(MAXITER))
 
@@ -88,16 +107,17 @@ def health_loop(step_fn: Callable, err_fn: Callable, T0, max_iters: int,
             T_new = step_fn(T, rescue_factor ** n_rescues)
         else:
             T_new = step_fn(T)
-        l1 = torch.sum(torch.abs(T_new))
-        healthy = bool(torch.isfinite(T_new).all() & (l1 > mass_floor)
+        l1 = _tree_l1(T_new)
+        healthy = bool(tree_finite(T_new) & (l1 > mass_floor)
                        & (l1 < mass_ceil))
         if healthy:
             err = err_fn(T_new).float()
             errors[i] = err
             last_err = err
             if tol > 0:
-                delta = (torch.sum(torch.abs(T_new - T))
-                         / torch.clamp_min(torch.sum(torch.abs(T)), _TINY))
+                num = _tree_l1(tuple(x - y for x, y in
+                                     zip(_leaves(T_new), _leaves(T))))
+                delta = num / torch.clamp_min(_tree_l1(T), _TINY)
                 conv = bool(delta <= tol)
             T = T_new
         else:

@@ -77,3 +77,23 @@ def test_grid_solver_and_kernel_entry_points_raise_without_a_card(
     with pytest.raises(RuntimeError, match="no CUDA device"):
         repro_torch.solve(p, "grid_gw",
                           generator=torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("route", ["dense_gw", "lowrank_gw", "unbalanced"])
+def test_new_routes_raise_without_a_card(monkeypatch, route):
+    """The dense, low-rank and unbalanced routes resolve their device like
+    the others: the card unless the caller asks for the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    n = 64
+    a = np.full(n, 1.0 / n, np.float32)
+    pts = np.random.default_rng(0).standard_normal((n, 3))
+    if route == "lowrank_gw":
+        p = interop.to_problem(None, a, None, a, points_x=pts, points_y=pts)
+    else:
+        C = np.ones((n, n), np.float32)
+        p = interop.to_problem(C, a, C, a,
+                               lam=1.0 if route == "unbalanced" else None)
+    solver = "spar_gw" if route == "unbalanced" else route
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.solve(p, solver,
+                          generator=torch.Generator().manual_seed(0))

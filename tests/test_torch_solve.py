@@ -25,7 +25,8 @@ import torch
 import repro
 import repro_torch
 from repro_torch.api import interop
-from repro_torch.api.solvers import SparGWSolver
+from repro_torch.api.solvers import DenseGWSolver, SparGWSolver
+from repro_torch.lowrank.solver import LowRankGWSolver
 
 VALUE_RTOL = 1e-5
 VALS_ATOL, VALS_RTOL = 1e-6, 1e-4
@@ -161,17 +162,28 @@ def test_todense_sums_duplicates_like_reference():
 
 
 @pytest.mark.parametrize("n,name", [(200, "dense_gw"), (300, "spar_gw"),
-                                    (2048, "spar_gw"), (3000, "quantized_gw")])
+                                    (2048, "spar_gw"), (3000, "quantized_gw"),
+                                    (3000, "lowrank_gw")])
 def test_select_solver_routes_like_reference(n, name):
+    """The lowrank_gw case is an l2 point cloud (exactly factorizable);
+    the others are cost matrices."""
     a = np.full(n, 1.0 / n, np.float32)
-    C = np.zeros((n, n), np.float32)
-    jp = repro.QuadraticProblem(repro.Geometry(C, a), repro.Geometry(C, a))
-    assert type(repro.select_solver(jp)).name == name
-    p = interop.to_problem(C, a, C, a)
-    if name == "spar_gw":
-        assert repro_torch.select_solver(p) == SparGWSolver(s=16 * n)
+    if name == "lowrank_gw":
+        pts = np.random.default_rng(0).standard_normal((n, 3))
+        jg = repro.Geometry.from_points(pts.astype(np.float32), a)
+        jp = repro.QuadraticProblem(jg, jg)
+        p = interop.to_problem(None, a, None, a, points_x=pts, points_y=pts)
     else:
-        with pytest.raises(NotImplementedError, match="not ported"):
+        C = np.zeros((n, n), np.float32)
+        jp = repro.QuadraticProblem(repro.Geometry(C, a), repro.Geometry(C, a))
+        p = interop.to_problem(C, a, C, a)
+    assert type(repro.select_solver(jp)).name == name
+    want = {"spar_gw": SparGWSolver(s=16 * n), "dense_gw": DenseGWSolver(),
+            "lowrank_gw": LowRankGWSolver()}
+    if name in want:
+        assert repro_torch.select_solver(p) == want[name]
+    else:
+        with pytest.raises(NotImplementedError, match="item 11"):
             repro_torch.select_solver(p)
 
 
@@ -194,17 +206,22 @@ def test_unported_paths_raise():
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(ValueError, match="generator"):
         repro_torch.solve(p, SparGWSolver(s=100), device="cpu")
-    unbalanced = repro_torch.QuadraticProblem(p.geom_x, p.geom_y, lam=1.0)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        repro_torch.solve(unbalanced, SparGWSolver(s=100), gen, device="cpu")
+    fused_unbalanced = repro_torch.QuadraticProblem(
+        p.geom_x, p.geom_y, lam=1.0, fused_penalty=0.5,
+        M=np.ones((48, 48), np.float32))
+    with pytest.raises(NotImplementedError,
+                       match="fused \\+ unbalanced GW is not implemented"):
+        repro_torch.solve(fused_unbalanced, SparGWSolver(s=100), gen,
+                          device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
         repro_torch.solve(p, SparGWSolver(s=100, fault=object()), gen,
                           device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         repro_torch.solve(p, SparGWSolver(s=100, trace=True), gen,
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        repro_torch.solve(p, "dense_gw", gen, device="cpu")
+    dense = repro_torch.solve(p, "dense_gw", device="cpu")   # no generator
+    assert dense.status.is_healthy and np.isfinite(float(dense.value))
+    assert tuple(dense.coupling.shape) == (48, 48)
     with pytest.raises(ValueError, match="out of range"):
         repro_torch.solve(p, SparGWSolver(s=2), device="cpu",
                           support=([0, 48], [0, 0]))
