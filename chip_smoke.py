@@ -42,6 +42,17 @@ Phases; any failure raises and exits non-zero with no result line:
    lowrank_gw with its anchor init, and the peak memory far below one
    n x n float32 matrix; then an n = 150 solve (20 outer steps) on the
    card against the CPU path on the same draws;
+4e. drive ``quantized_gw`` through the front door: ``repro_torch.solve``
+   with no solver on two 3-D Gaussian clouds as precomputed Euclidean
+   distances (benchmarks/bench_multiscale.py's recipe): l2 at n = 8192
+   (blocks 364 x 271 x 271) and l1 at n = 10 000 (400 x 300 x 300, the
+   profile-cost branch); the route must be quantized_gw, the blocks of
+   that shape, value and marginals finite and the status healthy; then
+   examples/multiscale.py's n = 150, k = 75 problem polished (K1 6 times)
+   and with a spar_gw base, each launching K1 and agreeing with the CPU
+   on the same draws; then a persistent NaN on spar_gw at n = 300:
+   ``on_failure="raise"`` raises, ``"fallback"`` recovers on the CPU
+   port's rung;
 5. drive the grid main path: ``repro_torch.solve`` with
    ``GridGWSolver.default_config(2048)`` (s_r = s_c = 181) and
    ``use_kernel=True`` on the same Moon pair with the l1 loss; the
@@ -74,8 +85,9 @@ Phases; any failure raises and exits non-zero with no result line:
    llama3-8b's attention shape); print each Sinkhorn route's CTAs,
    shared memory a CTA and barriers a call;
 9. trace one grid solve, one spar solve (gather-fused), one unbalanced
-   spar solve ("auto"), the low-rank solve cut to 3 outer steps (also
-   timed once unprofiled) and one zamba2-7b prefill with
+   spar solve ("auto"), the low-rank solve cut to 3 outer steps and the
+   n = 8192 quantized solve with its coarse solve cut to 1 outer step
+   (both also timed once unprofiled), and one zamba2-7b prefill with
    ``torch.profiler`` and print each one's wall time, device-busy time,
    idle share and the kernels that take the most device time; then each
    phase's wall time.
@@ -110,6 +122,20 @@ N_LOWRANK_SMALL = 150  # low-rank card-vs-CPU agreement check
 # (each step runs the same work: ~200 Dykstra iterations of ~150 launches;
 # the full solve would give the profiler ~9 million kernel events)
 LOWRANK_PROFILE_STEPS = 3
+# quantized_gw's main path (benchmarks/bench_multiscale.py's 3-D Gaussian
+# clouds as precomputed Euclidean distances): the largest size select_solver
+# sends a precomputed l2 problem to quantized_gw, and the reference's n = 10k
+# acceptance size on the profile-cost (l1) branch; the block shapes
+# (pairs, cap_x, cap_y) their default sizing gives
+N_QUANT_L2 = 8192
+N_QUANT_L1 = 10_000
+QUANT_BLOCKS = {"l2": (364, 271, 271), "l1": (400, 300, 300)}
+N_QUANT_SMALL = 150    # examples/multiscale.py's problem, k = n/2: K1's path
+QUANT_VALUE_RTOL = 1e-4   # card vs CPU, same draws (tests/test_torch_quantized)
+# the profile of phase 9 cuts the quantized l2 solve's coarse dense solve
+# to this many outer steps (each runs ~2000 inner iterations of ~25
+# launches and a host read; the full solve took 50, ~99 000 iterations)
+QUANT_PROFILE_OUTER = 1
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32
 # (non-tensor-core) flop/s and dense bf16 tensor-core flop/s. The GW
@@ -296,6 +322,28 @@ def gaussian_clouds(repro_torch, n: int, seed: int):
             rng.standard_normal((n, 3)).astype(np.float32), w))
 
 
+def cloud_dists(seed: int, n: int, d: int = 3, chunk: int = 2048):
+    """benchmarks/bench_multiscale.py's (n, n) float32 Euclidean distance
+    matrix of a standard Gaussian cloud in d dimensions, built in row
+    chunks (no n² float64 array)."""
+    x = np.random.default_rng(seed).standard_normal((n, d)).astype(np.float32)
+    sq = (x ** 2).sum(1)
+    D = np.empty((n, n), np.float32)
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        g = sq[lo:hi, None] + sq[None, :] - 2.0 * (x[lo:hi] @ x.T)
+        D[lo:hi] = np.sqrt(np.maximum(g, 0.0))
+    return D
+
+
+def cloud_problem(repro_torch, n: int, loss: str = "l2"):
+    """Two such clouds (seeds 0 and 1), uniform weights, on the CPU."""
+    w = np.full(n, 1.0 / n, np.float32)
+    return repro_torch.QuadraticProblem(
+        repro_torch.Geometry(cloud_dists(0, n), w),
+        repro_torch.Geometry(cloud_dists(1, n), w), loss=loss)
+
+
 def profile_solve(torch, fn, top: int = 8) -> dict:
     """Trace ``fn()`` with torch.profiler: wall time, the summed device
     time of its CUDA kernels, the device's idle share, the top kernels.
@@ -403,8 +451,17 @@ def main(parent: Path | None = None) -> int:
     from repro_torch.kernels.ssd.ref import ssd_intra_error_scale
     from repro_torch.lowrank import solver as lowrank_solver
     from repro_torch.lowrank.init import LowRankDraws
+    from repro_torch.core import sampling
+    from repro_torch.core import sinkhorn as sinkhorn_loops
+    from repro_torch.health import FaultSpec, SolveDivergedError
     from repro_torch.lowrank.solver import LowRankGWSolver
-    from repro_torch.multiscale.anchors import draw_start
+    from repro_torch.multiscale import (
+        QuantizedDraws,
+        QuantizedGWSolver,
+        compress_problem,
+        select_anchors,
+    )
+    from repro_torch.multiscale.anchors import draw_anchors, draw_start
     from repro_torch.models import Model
     from repro_torch.models import ssm as ssm_mod
 
@@ -769,6 +826,152 @@ def main(parent: Path | None = None) -> int:
     del out_lr, mu, nu
     torch.cuda.empty_cache()
 
+    # -- 4e. quantized_gw through the front door ----------------------------
+    stamps.append(("4e", time.perf_counter()))
+    quant_runs, quant_problem = {}, None
+    # count the scaling iterations of the dense (tol-stopped) Sinkhorn
+    # loops: the coarse solve's inner loops, one host read each
+    real_scaling_loop = sinkhorn_loops._scaling_loop
+    scaling_iters = []
+
+    def counted_scaling_loop(body, init, iters, tol):
+        def counted(carry):
+            scaling_iters.append(1)
+            return body(carry)
+        return real_scaling_loop(counted, init, iters, tol)
+
+    sinkhorn_loops._scaling_loop = counted_scaling_loop
+    for loss, n_q in (("l2", N_QUANT_L2), ("l1", N_QUANT_L1)):
+        qp = cloud_problem(repro_torch, n_q, loss)
+        if repro_torch.select_solver(qp) != QuantizedGWSolver():
+            raise AssertionError(f"quantized {loss}: auto-selection gave "
+                                 f"{repro_torch.select_solver(qp)}")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base_bytes = torch.cuda.memory_allocated()
+        scaling_iters.clear()
+        t0 = time.perf_counter()
+        out = repro_torch.solve(qp, generator=torch.Generator(dev).manual_seed(0))
+        value = float(out.value)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base_bytes
+        blocks = out.coupling.blocks
+        mu, nu = out.coupling.marginals(n_q, n_q)
+        w = qp.geom_x.weights.to(dev)
+        q_err = float((mu - w).abs().sum() + (nu - w).abs().sum())
+        if tuple(blocks.shape) != QUANT_BLOCKS[loss]:
+            raise AssertionError(f"quantized {loss}: blocks {blocks.shape}, "
+                                 f"expected {QUANT_BLOCKS[loss]}")
+        if not (math.isfinite(value) and out.status.is_healthy
+                and bool(blocks.isfinite().all()) and math.isfinite(q_err)):
+            raise AssertionError(f"quantized {loss}: value {value} "
+                                 f"{out.status}, marginal err {q_err}")
+        quant_runs[loss] = {
+            "n": n_q, "blocks": list(blocks.shape), "value": value,
+            "status": out.status.describe(), "n_iters": out.n_iters,
+            "marginal_err": q_err, "mass": float(blocks.sum()),
+            "dense_sinkhorn_iterations": len(scaling_iters),
+            "wall_s": wall, "peak_memory_mib_above_start": peak / 2**20}
+        if loss == "l2":
+            quant_problem = qp
+        del out, blocks, mu, nu
+        torch.cuda.empty_cache()
+    sinkhorn_loops._scaling_loop = real_scaling_loop
+    print(json.dumps({"quantized_path": quant_runs}))
+
+    # K1 on this path: examples/multiscale.py's problem (n = 150, k = n/2)
+    # polished (5 steps and the value on the 300 x 8 x 8 support), and with
+    # a spar_gw base (K1 in the coarse solve as well); the card against the
+    # CPU on the same draws
+    qsmall = cloud_problem(repro_torch, N_QUANT_SMALL)
+    k_q = N_QUANT_SMALL // 2
+    polished = QuantizedGWSolver(k_x=k_q, k_y=k_q)
+    spar_based = QuantizedGWSolver(k_x=k_q, k_y=k_q, base=SparGWSolver(
+        tol=1e-6, inner_tol=1e-8))
+    qgen = torch.Generator(dev).manual_seed(3)
+    qs_dev = qsmall.to(dev)
+    starts = [draw_anchors(qgen, g.weights, k_q)
+              for g in (qs_dev.geom_x, qs_dev.geom_y)]
+    coarse = compress_problem(qs_dev, *(
+        select_anchors(st, g.cost, g.weights, k_q)
+        for st, g in zip(starts, (qs_dev.geom_x, qs_dev.geom_y))))
+    sized = spar_based._sized_base(k_q, k_q)
+    base_support = sampling.sample_pairs(qgen, sampling.balanced_probs(
+        coarse.geom_x.weights, coarse.geom_y.weights, sized.shrink), sized.s)
+    quant_launches, quant_small = {}, {}
+    for name, solver, draws in (
+            ("polished", polished, QuantizedDraws(*starts)),
+            ("spar_base", spar_based, QuantizedDraws(*starts, base_support))):
+        spar_cost.reset_launch_counts()
+        on_card = repro_torch.solve(qsmall, solver, draws=draws)
+        vc = float(on_card.value)
+        torch.cuda.synchronize()
+        quant_launches[name] = dict(spar_cost.LAUNCHES)
+        on_cpu = repro_torch.solve(qsmall, solver, device="cpu",
+                                   draws=QuantizedDraws(
+                                       *(x.cpu() for x in starts),
+                                       None if draws.base is None else
+                                       tuple(x.cpu() for x in draws.base)))
+        vp = float(on_cpu.value)
+        if quant_launches[name]["spar_matvec"] <= 0:
+            raise AssertionError(f"quantized {name}: K1 never launched")
+        if (name == "polished" and on_card.status.n_rescues == 0
+                and quant_launches[name]["spar_matvec"] != 6):
+            raise AssertionError(f"quantized polished: K1 launched "
+                                 f"{quant_launches[name]} times, expected 6")
+        if not (math.isfinite(vc) and on_card.status.is_healthy
+                and on_card.status.code == on_cpu.status.code
+                and abs(vc - vp) <= QUANT_VALUE_RTOL * abs(vp)):
+            raise AssertionError(f"quantized {name}: card {vc} "
+                                 f"{on_card.status} vs CPU {vp} "
+                                 f"{on_cpu.status}")
+        # the refined pairs in order, and as a set (equal coarse masses
+        # may come out of the card's atomics in another order)
+        keys = [c.pair_rows.cpu() * k_q + c.pair_cols.cpu()
+                for c in (on_card.coupling, on_cpu.coupling)]
+        quant_small[name] = {
+            "value_card": vc, "value_cpu": vp,
+            "status": on_card.status.describe(),
+            "same_pair_order": torch.equal(*keys),
+            "same_pair_set": torch.equal(*(k.sort().values for k in keys)),
+            "launches": quant_launches[name]}
+    print(json.dumps({"quantized_small": {"n": N_QUANT_SMALL, "k": k_q,
+                                          **quant_small}}))
+    print(f"small quantized solves n={N_QUANT_SMALL}: card agrees with CPU "
+          f"(value rtol {QUANT_VALUE_RTOL})")
+
+    # the failure path: a persistent NaN on spar_gw; "raise" raises, and
+    # "fallback" recovers on the rung the CPU port recovers on (a fused
+    # problem, so the ladder is quantized -> dense)
+    fcx, fwx, fcy, fwy = moon(N_SMALL, seed=4)
+    fused = repro_torch.QuadraticProblem(
+        repro_torch.Geometry(fcx, fwx), repro_torch.Geometry(fcy, fwy),
+        M=np.random.default_rng(4).random((N_SMALL, N_SMALL)).astype(
+            np.float32), fused_penalty=0.6)
+    faulted = SparGWSolver(s=16 * N_SMALL, max_rescues=0, fault=FaultSpec(
+        at_iter=1, kind="nan", persistent=True))
+    try:
+        repro_torch.solve(fused, faulted, torch.Generator(dev).manual_seed(5),
+                          on_failure="raise")
+        raise AssertionError("on_failure='raise' did not raise")
+    except SolveDivergedError as exc:
+        if not exc.output.status.is_diverged:
+            raise AssertionError(f"raised with {exc.output.status}") from exc
+    rungs = {}
+    for where, fgen in (("card", torch.Generator(dev).manual_seed(5)),
+                       ("cpu", torch.Generator().manual_seed(5))):
+        out = repro_torch.solve(fused, faulted, fgen, on_failure="fallback",
+                                device=None if where == "card" else "cpu")
+        if not (out.status.is_healthy and math.isfinite(float(out.value))):
+            raise AssertionError(f"fallback on the {where}: {out.status}")
+        rungs[where] = type(out.coupling).__name__
+    if rungs["card"] != rungs["cpu"]:
+        raise AssertionError(f"fallback rungs differ: {rungs}")
+    print(json.dumps({"failure_path": {"n": N_SMALL, "raise": "raised",
+                                       "fallback_rung": rungs}}))
+
     # -- 5. the grid main path ---------------------------------------------
     stamps.append(("5", time.perf_counter()))
     grid_problem = repro_torch.QuadraticProblem(
@@ -1069,6 +1272,9 @@ def main(parent: Path | None = None) -> int:
         "replaces": "src/repro/kernels/spar_cost/spar_cost.py:132",
         "launches": launches["spar_matvec"],
         "launches_unbalanced": ugw_launches["spar_matvec"],
+        "launches_quantized": quant_launches["polished"]["spar_matvec"],
+        "launches_quantized_spar_base": quant_launches["spar_base"][
+            "spar_matvec"],
         "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": lib_ms})
@@ -1269,6 +1475,16 @@ def main(parent: Path | None = None) -> int:
     t0 = time.perf_counter()
     lowrank_cut()
     lowrank_cut_wall = time.perf_counter() - t0
+    q_cut = QuantizedGWSolver(base=dataclasses.replace(
+        QuantizedGWSolver().base, outer_iters=QUANT_PROFILE_OUTER))
+
+    def quantized_cut():
+        return repro_torch.solve(quant_problem, q_cut, generator=torch.Generator(
+            dev).manual_seed(0)).value.item()
+
+    t0 = time.perf_counter()
+    quantized_cut()
+    quantized_cut_wall = time.perf_counter() - t0
     print(json.dumps({"profile": {
         "grid": profile_solve(torch, lambda: repro_torch.solve(
             grid_problem, grid_solver, support=grid_support).value.item()),
@@ -1279,6 +1495,9 @@ def main(parent: Path | None = None) -> int:
         f"lowrank_{LOWRANK_PROFILE_STEPS}_steps": {
             **profile_solve(torch, lowrank_cut),
             "unprofiled_wall_s": lowrank_cut_wall},
+        f"quantized_l2_{QUANT_PROFILE_OUTER}_outer_steps": {
+            **profile_solve(torch, quantized_cut, top=10),
+            "unprofiled_wall_s": quantized_cut_wall},
         "zamba2_prefill": profile_solve(torch, lambda: model.prefill(
             params, tokens, use_flash=True)[0].sum().item(), top=12)}}))
 

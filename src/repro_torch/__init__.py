@@ -14,6 +14,8 @@ from repro_torch.api import (
     LowRankCoupling,
     LowRankGWSolver,
     QuadraticProblem,
+    QuantizedCoupling,
+    QuantizedGWSolver,
     SparGWSolver,
     SparseCoupling,
     available_solvers,
@@ -30,12 +32,14 @@ __all__ = [
     "SparseCoupling",
     "GridCoupling",
     "LowRankCoupling",
+    "QuantizedCoupling",
     "solve",
     "select_solver",
     "SparGWSolver",
     "GridGWSolver",
     "DenseGWSolver",
     "LowRankGWSolver",
+    "QuantizedGWSolver",
     "get_solver",
     "register_solver",
     "available_solvers",

@@ -4,6 +4,7 @@ from repro_torch.api.output import (
     GridCoupling,
     GWOutput,
     LowRankCoupling,
+    QuantizedCoupling,
     SparseCoupling,
 )
 from repro_torch.api.problem import QuadraticProblem
@@ -24,16 +25,20 @@ __all__ = [
     "SparseCoupling",
     "GridCoupling",
     "LowRankCoupling",
+    "QuantizedCoupling",
     "solve",
     "select_solver",
     "SparGWSolver",
     "GridGWSolver",
     "DenseGWSolver",
     "LowRankGWSolver",
+    "QuantizedGWSolver",
     "get_solver",
     "register_solver",
     "available_solvers",
 ]
 
-# registers "lowrank_gw"; lowrank.solver imports api.solvers, so it comes last
+# register "lowrank_gw" and "quantized_gw"; both modules import
+# api.solvers, so they come last
 from repro_torch.lowrank.solver import LowRankGWSolver  # noqa: E402
+from repro_torch.multiscale.solver import QuantizedGWSolver  # noqa: E402

@@ -40,6 +40,41 @@ class GridCoupling(NamedTuple):
                             self.block, accumulate=True)
 
 
+class QuantizedCoupling(NamedTuple):
+    """Hierarchical coupling from the multiscale pipeline.
+
+    One refined member×member block per supported anchor pair of the
+    coarse coupling. Padded member slots carry point index 0 with block
+    value exactly 0.0, so ``tocoo()`` is COO-compatible with the
+    SparseCoupling consumers (the padding merges to +0 by summation).
+    """
+    pair_rows: Any   # (B,) int64 — anchor id on the X side of each block
+    pair_cols: Any   # (B,) int64 — anchor id on the Y side of each block
+    members_x: Any   # (B, cap_x) int64 — fine point indices (0 where padded)
+    members_y: Any   # (B, cap_y) int64
+    blocks: Any      # (B, cap_x, cap_y) float32 — 0.0 on padded slots
+
+    def tocoo(self):
+        """Flatten to COO (rows, cols, vals) of length B·cap_x·cap_y."""
+        Bn, cx, cy = self.blocks.shape
+        rows = self.members_x[:, :, None].expand(Bn, cx, cy)
+        cols = self.members_y[:, None, :].expand(Bn, cx, cy)
+        return rows.reshape(-1), cols.reshape(-1), self.blocks.reshape(-1)
+
+    def todense(self, m: int, n: int):
+        rows, cols, vals = self.tocoo()
+        return SparseCoupling(rows, cols, vals).todense(m, n)
+
+    def marginals(self, m: int, n: int):
+        """(mu, nu) of the refined coupling — O(B·cap²), never densifies."""
+        z = self.blocks
+        mu = torch.zeros(m, dtype=z.dtype, device=z.device).index_add_(
+            0, self.members_x.reshape(-1), z.sum(dim=2).reshape(-1))
+        nu = torch.zeros(n, dtype=z.dtype, device=z.device).index_add_(
+            0, self.members_y.reshape(-1), z.sum(dim=1).reshape(-1))
+        return mu, nu
+
+
 class LowRankCoupling(NamedTuple):
     """Factored coupling T = Q diag(1/g) Rᵀ (Scetbon et al., 2021/22).
 
@@ -83,7 +118,8 @@ class GWOutput:
 
     value     — 0-d tensor: the objective estimate
     coupling  — a ``SparseCoupling``, a ``GridCoupling``, a dense (m, n)
-                tensor (``dense_gw``) or a ``LowRankCoupling``
+                tensor (``dense_gw``), a ``QuantizedCoupling`` or a
+                ``LowRankCoupling``
     errors    — (outer_iters,) marginal ℓ1 error after each outer
                 iteration; NaN beyond ``n_iters`` and at rescued iterations
     converged — True iff the outer loop met its tolerance (False at tol=0)
@@ -98,3 +134,9 @@ class GWOutput:
     n_iters: int
     status: Optional[SolveStatus] = None
     trace: Optional[Any] = None
+
+    def coupling_dense(self, m: int, n: int):
+        """The coupling as a dense (m, n) tensor, whatever its storage."""
+        if hasattr(self.coupling, "todense"):
+            return self.coupling.todense(m, n)
+        return self.coupling

@@ -149,9 +149,10 @@ class SparGWSolver:
     sampled support size (the paper uses s = 16n);
     ``cost_impl`` selects the O(s²) cost-assembly backend
     (kernels/spar_cost). ``max_rescues`` / ``rescue_factor`` bound the
-    ε-rescue restarts on detected divergence. ``fault`` and ``trace`` are
-    kept for parity with the reference and must stay at their defaults
-    until fault injection and traces are ported.
+    ε-rescue restarts on detected divergence. ``fault`` takes a
+    :class:`~repro_torch.health.faults.FaultSpec` that the loop injects;
+    ``trace=True`` raises until convergence traces are ported (ROADMAP
+    queue 1, item 14).
     """
     s: int = 0
     reg: str = "prox"
@@ -294,8 +295,8 @@ class DenseGWSolver:
     Handles the fused (problem linear term) and unbalanced (problem
     ``lam``) variants; the unbalanced path always runs in the log domain.
     Deterministic: it draws nothing, so ``solve`` needs no generator.
-    ``fault`` and ``trace`` must stay at their defaults until fault
-    injection and traces are ported.
+    ``fault`` takes a ``FaultSpec`` that the loop injects; ``trace=True``
+    raises until convergence traces are ported (item 14).
     """
     reg: str = "prox"
     epsilon: Any = 1e-2
@@ -443,8 +444,8 @@ class GridGWSolver:
     Balanced problems only (no fused/unbalanced grid variant yet).
     ``use_kernel`` routes the arbitrary-loss cost assembly through the
     ``gw_cost`` kernel; decomposable losses (l2, kl) take two matmuls
-    either way. ``fault`` and ``trace`` must stay at their defaults until
-    fault injection and traces are ported.
+    either way. ``fault`` takes a ``FaultSpec`` that the loop injects;
+    ``trace=True`` raises until convergence traces are ported (item 14).
     """
     s_r: int = 0
     s_c: int = 0

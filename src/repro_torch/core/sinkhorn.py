@@ -1,7 +1,8 @@
 """Sinkhorn scaling, dense and sparse (COO): the paper's Step 7.
 
 Counterpart of ``repro.core.sinkhorn``: the dense plain and log-domain
-loops (the grid path's s_r x s_c block, the dense solver) and the sparse
+loops (the grid path's s_r x s_c block, the dense solver, and batched for
+the multiscale refinement's blocks) and the sparse
 ones, O(H s), each balanced and unbalanced (Alg. 3 step 9, exponent
 ρ = λ/(λ+ε)). Sparse segment sums are ``index_add_``; segment maxima are ``scatter_reduce("amax",
 include_self=False)`` into an output initialised to -inf, so an empty
@@ -111,6 +112,45 @@ def sinkhorn_log(a, b, logK, iters: int, differentiable: bool = False,
 
     f, g = _scaling_loop(body, (f0, g0), iters, tol)
     return flush_subnormal(torch.exp(logK + f[:, None] + g[None, :]))
+
+
+def sinkhorn_log_batched(a, b, logK, iters: int, tol: float = 0.0):
+    """B independent log-domain Sinkhorn solves in one batch: the
+    reference's ``jax.vmap`` of :func:`sinkhorn_log`.
+
+    a (B, m), b (B, n), logK (B, m, n); returns the (B, m, n) couplings.
+    With ``tol > 0`` each block stops on its own, as the vmapped
+    ``while_loop`` freezes a lane once it meets its tolerance: a block's
+    change is the sup-norm over its own potentials, and a block that met
+    it keeps the update that did so and changes no more. The blocks still
+    active are read on the host after every iteration.
+    """
+    Bn, m, n = logK.shape
+    la = log_floor(a)
+    lb = log_floor(b)
+    f = torch.zeros((Bn, m), dtype=logK.dtype, device=logK.device)
+    g = torch.zeros((Bn, n), dtype=logK.dtype, device=logK.device)
+
+    def body(f, g):
+        f = _finite(la - torch.logsumexp(logK + g[:, None, :], dim=2))
+        g = _finite(lb - torch.logsumexp(logK + f[:, :, None], dim=1))
+        return f, g
+
+    if not tol or tol <= 0.0:
+        for _ in range(iters):
+            f, g = body(f, g)
+    else:
+        active = torch.ones(Bn, dtype=torch.bool, device=logK.device)
+        for _ in range(iters):
+            f_new, g_new = body(f, g)
+            delta = torch.maximum(torch.amax(torch.abs(f_new - f), dim=1),
+                                  torch.amax(torch.abs(g_new - g), dim=1))
+            f = torch.where(active[:, None], f_new, f)
+            g = torch.where(active[:, None], g_new, g)
+            active = active & ~(delta <= tol)
+            if not bool(active.any()):
+                break
+    return flush_subnormal(torch.exp(logK + f[:, :, None] + g[:, None, :]))
 
 
 def sinkhorn_unbalanced(a, b, K, lam, eps, iters: int, tol: float = 0.0):

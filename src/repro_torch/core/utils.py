@@ -46,6 +46,16 @@ def safe_div(num, den):
     return flush_subnormal(torch.where(pos, flush_subnormal(num) / den, 0.0))
 
 
+def div_floor(num, den):
+    """The reference's ``num / max(den, 1e-38)`` as XLA evaluates it.
+
+    The floor is itself subnormal and flushes, so a ``den`` below the
+    smallest normal divides by 0: NaN for 0/0, ±inf otherwise.
+    """
+    den = torch.where(den < FLT_MIN, 0.0, den)
+    return flush_subnormal(flush_subnormal(num) / den)
+
+
 def generalized_kl(p, q):
     """KL(p || q) = Σ p log(p/q) - m(p) + m(q) for nonnegative vectors."""
     p, q = flush_subnormal(p), flush_subnormal(q)

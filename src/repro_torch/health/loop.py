@@ -13,10 +13,16 @@ The iterate is a tensor or a tuple of tensors (the low-rank solver's
 ``(Q, R, g)``); the verdict, the mass and the ``tol`` delta are taken over
 all of its leaves, as the reference's ``_tree_l1`` / ``tree_finite`` do.
 
+An optional :class:`~repro_torch.health.faults.FaultSpec` poisons the
+iterate at configured iterations, as in the reference: ``site="cost"``
+the step's input (the fault transits the cost evaluation and the inner
+Sinkhorn), ``"iterate"`` its output. With no fault the loop does exactly
+what it did without the hook.
+
 The loop runs on the host, one step at a time: the health verdict of each
 step is read on the host (one synchronisation per outer iteration), so no
-lane masking is needed. Fault injection and convergence traces are not
-ported yet.
+lane masking is needed. Convergence traces are not ported yet (ROADMAP
+queue 1, item 14).
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.health.faults import FaultSpec
 from repro_torch.health.status import (
     CONVERGED,
     DIVERGED,
@@ -86,10 +93,11 @@ def health_loop(step_fn: Callable, err_fn: Callable, T0, max_iters: int,
                   leaves) <= tol; 0 runs the fixed budget (``converged``
                   stays False)
     max_rescues — divergence restarts before the solve ends DIVERGED
+    fault       — optional FaultSpec (see health/faults.py)
     """
-    if fault is not None:
-        raise NotImplementedError(
-            "fault injection is not ported yet (ROADMAP queue 1, item 12)")
+    if fault is not None and not isinstance(fault, FaultSpec):
+        raise TypeError(f"fault must be a FaultSpec or None, got "
+                        f"{type(fault).__name__}")
     if trace:
         raise NotImplementedError(
             "convergence traces are not ported yet (ROADMAP queue 1, "
@@ -103,10 +111,14 @@ def health_loop(step_fn: Callable, err_fn: Callable, T0, max_iters: int,
     last_err = None
     fail_iter, n_rescues, conv, dead, i = -1, 0, False, False, 0
     while i < max_iters and not (conv or dead):
+        T_in = fault.apply(T, i) if fault is not None and \
+            fault.site == "cost" else T
         if scaled_step:
-            T_new = step_fn(T, rescue_factor ** n_rescues)
+            T_new = step_fn(T_in, rescue_factor ** n_rescues)
         else:
-            T_new = step_fn(T)
+            T_new = step_fn(T_in)
+        if fault is not None and fault.site == "iterate":
+            T_new = fault.apply(T_new, i)
         l1 = _tree_l1(T_new)
         healthy = bool(tree_finite(T_new) & (l1 > mass_floor)
                        & (l1 < mass_ceil))

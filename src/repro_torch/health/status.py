@@ -74,3 +74,13 @@ class SolveStatus(NamedTuple):
 
     def describe(self) -> str:
         return STATUS_NAMES[self.code]
+
+
+class SolveDivergedError(RuntimeError):
+    """Raised by ``solve(..., on_failure="raise")`` when the solve failed
+    (DIVERGED/STALLED status or non-finite value); the failed output
+    rides on ``.output``."""
+
+    def __init__(self, message: str, output=None):
+        super().__init__(message)
+        self.output = output

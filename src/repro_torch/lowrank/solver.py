@@ -104,8 +104,8 @@ class LowRankGWSolver:
     inner_tol     — Dykstra stop: sup-norm change of the scalings
     max_rescues, rescue_factor — rescue budget on detected divergence;
                     the escalation divides γ (step-size halving)
-    fault, trace  — must stay at their defaults until fault injection and
-                    traces are ported
+    fault         — a ``FaultSpec`` the loop injects into (Q, R, g)
+    trace         — raises until convergence traces are ported (item 14)
     """
     rank: int = 0
     cost_rank: int = 0

@@ -35,6 +35,7 @@ from repro.core import gw as jgw
 from repro_torch.api import interop
 from repro_torch.core import gw, spar_ugw
 from test_torch_solve import ERR_ATOL, VALS_ATOL, VALS_RTOL, VALUE_RTOL, _moon
+from test_torch_solve import _one_torch_thread  # noqa: F401 (autouse)
 
 # the module (repro.core re-exports a function of the same name)
 jugw = importlib.import_module("repro.core.spar_ugw")

@@ -32,6 +32,7 @@ from repro_torch.api import interop
 from repro_torch.api.solvers import GridGWSolver
 from repro_torch.core import grid_gw
 from test_torch_solve import ERR_ATOL, VALS_ATOL, VALS_RTOL, VALUE_RTOL, _moon
+from test_torch_solve import _one_torch_thread  # noqa: F401 (autouse)
 
 S_R, S_C = 24, 20
 

@@ -1,8 +1,8 @@
 """The port stands alone: no JAX and nothing of the reference package.
 
 Every ``.py`` file under ``src/repro_torch/`` and ``chip_smoke.py`` is
-parsed with ``ast``; an import of ``jax`` (or ``jaxlib``) or of ``repro``
-/ ``repro.*`` fails the test. The entry points run on the card by
+parsed with ``ast``; an import of ``jax`` (or ``jaxlib``), of ``repro``
+/ ``repro.*`` or of ``benchmarks`` fails the test. The entry points run on the card by
 default and must raise, not fall back to the CPU, when there is none.
 """
 import ast
@@ -17,7 +17,12 @@ from repro_torch.api import interop
 from repro_torch.kernels import dispatch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
+# the multiscale and health modules: scanned like every other file, and
+# required to be there
+NEW_MODULES = ("multiscale/anchors.py", "multiscale/compress.py",
+               "multiscale/refine.py", "multiscale/solver.py",
+               "health/faults.py", "health/fallback.py")
 
 
 def _port_files():
@@ -38,6 +43,8 @@ def _imported_roots(path):
 def test_port_imports_neither_jax_nor_reference():
     files = _port_files()
     assert len(files) > 15
+    port = ROOT / "src" / "repro_torch"
+    assert all(port / m in files for m in NEW_MODULES)
     bad = [(str(p.relative_to(ROOT)), root) for p in files
            for root in _imported_roots(p) if root in FORBIDDEN]
     assert not bad, f"forbidden imports: {bad}"
@@ -46,9 +53,10 @@ def test_port_imports_neither_jax_nor_reference():
 def test_scanner_catches_forbidden_imports(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import os\nfrom repro.core import sinkhorn\n"
-                 "import jax.numpy as jnp\nfrom repro_torch import solve\n")
+                 "import jax.numpy as jnp\nfrom repro_torch import solve\n"
+                 "from benchmarks import datasets\n")
     assert [r for r in _imported_roots(f) if r in FORBIDDEN] == [
-        "repro", "jax"]
+        "repro", "jax", "benchmarks"]
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -79,10 +87,12 @@ def test_grid_solver_and_kernel_entry_points_raise_without_a_card(
                           generator=torch.Generator().manual_seed(0))
 
 
-@pytest.mark.parametrize("route", ["dense_gw", "lowrank_gw", "unbalanced"])
+@pytest.mark.parametrize("route", ["dense_gw", "lowrank_gw", "unbalanced",
+                                   "quantized_gw"])
 def test_new_routes_raise_without_a_card(monkeypatch, route):
-    """The dense, low-rank and unbalanced routes resolve their device like
-    the others: the card unless the caller asks for the CPU."""
+    """The dense, low-rank, unbalanced and quantized routes resolve their
+    device like the others: the card unless the caller asks for the
+    CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     n = 64
     a = np.full(n, 1.0 / n, np.float32)

@@ -50,6 +50,7 @@ from repro_torch.api import interop
 from repro_torch.lowrank import dykstra, factorize, gradients, init
 from repro_torch.lowrank.solver import LowRankGWSolver
 from repro_torch.multiscale import anchors
+from test_torch_solve import _one_torch_thread  # noqa: F401 (autouse)
 
 RTOL, ATOL_REL = 1e-5, 1e-6
 QR_ATOL = 1e-5

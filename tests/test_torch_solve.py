@@ -26,11 +26,26 @@ import repro
 import repro_torch
 from repro_torch.api import interop
 from repro_torch.api.solvers import DenseGWSolver, SparGWSolver
+from repro_torch.health import FaultSpec
 from repro_torch.lowrank.solver import LowRankGWSolver
 
 VALUE_RTOL = 1e-5
 VALS_ATOL, VALS_RTOL = 1e-6, 1e-4
 ERR_ATOL = 5e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread for a module's tests (the GW parity files
+    import this fixture). Their solves are small (n ≤ 150): one thread runs
+    them as fast as eight alone, while under the suite's parallel workers
+    each process's eight spinning threads contend for the same cores (on
+    an 8-core CPU with 6 workers, test_torch_dense.py took 930 s that way
+    against 35 s alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _moon(n, seed=0):
@@ -179,12 +194,9 @@ def test_select_solver_routes_like_reference(n, name):
         p = interop.to_problem(C, a, C, a)
     assert type(repro.select_solver(jp)).name == name
     want = {"spar_gw": SparGWSolver(s=16 * n), "dense_gw": DenseGWSolver(),
-            "lowrank_gw": LowRankGWSolver()}
-    if name in want:
-        assert repro_torch.select_solver(p) == want[name]
-    else:
-        with pytest.raises(NotImplementedError, match="item 11"):
-            repro_torch.select_solver(p)
+            "lowrank_gw": LowRankGWSolver(),
+            "quantized_gw": repro_torch.QuantizedGWSolver()}
+    assert repro_torch.select_solver(p) == want[name]
 
 
 def test_own_draw_is_reproducible_and_healthy():
@@ -213,9 +225,16 @@ def test_unported_paths_raise():
                        match="fused \\+ unbalanced GW is not implemented"):
         repro_torch.solve(fused_unbalanced, SparGWSolver(s=100), gen,
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # a fault that is not a FaultSpec is a TypeError, as the reference's
+    # jit gives for it; a FaultSpec is injected
+    with pytest.raises(TypeError, match="FaultSpec"):
         repro_torch.solve(p, SparGWSolver(s=100, fault=object()), gen,
                           device="cpu")
+    faulted = repro_torch.solve(p, SparGWSolver(
+        s=100, max_rescues=0, fault=FaultSpec(at_iter=1, persistent=True)),
+        gen, device="cpu")
+    assert faulted.status.describe() == "DIVERGED"
+    assert faulted.status.fail_iter == 1
     with pytest.raises(NotImplementedError, match="item 14"):
         repro_torch.solve(p, SparGWSolver(s=100, trace=True), gen,
                           device="cpu")

@@ -41,6 +41,7 @@ from repro_torch.core import sampling
 from repro_torch.core import sinkhorn as sk
 from repro_torch.core import utils
 from test_torch_solve import _assert_parity, _moon
+from test_torch_solve import _one_torch_thread  # noqa: F401 (autouse)
 
 # the module (repro.core re-exports a function of the same name)
 jsk = importlib.import_module("repro.core.sinkhorn")
