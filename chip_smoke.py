@@ -20,6 +20,9 @@ Phases; any failure raises and exits non-zero with no result line:
 3. hold each kernel against its plain PyTorch version at ragged shapes
    (the gather-fused kernel also on a support sorted by row, as the
    main path runs it; the dense Sinkhorn on each of its three routes);
+   the matvec kernel's ``autograd.Function`` against autograd through
+   its plain version at s = 1003 (dLmat and doff exactly, dt within the
+   kernel bound);
 4. drive the spar main path: ``repro_torch.solve`` with auto-selection
    on an n = 2048 Moon pair (spar_gw, s = 16n = 32768, cost_impl "auto"
    = the materialized matvec kernel), then the same support with the
@@ -53,6 +56,25 @@ Phases; any failure raises and exits non-zero with no result line:
    on the same draws; then a persistent NaN on spar_gw at n = 300:
    ``on_failure="raise"`` raises, ``"fallback"`` recovers on the CPU
    port's rung;
+4f. drive ``repro_torch.diff`` and ``repro_torch.obs``: ``gw_loss`` on
+   the n = 2048 Moon point clouds with no solver (auto-selected spar_gw,
+   s = 32768, the matvec kernel K1) and its gradient with respect to
+   both clouds: K1 launches the loop's steps plus one in the forward and
+   nothing in the backward, the gradient is finite and agrees with the
+   same gradient through K1's plain version on the card (walls and peak
+   memory printed); an n = 300 gradient on the card against the CPU;
+   ``fgw_loss`` with features at n = 2048, whose quadratic part must be
+   nonzero; a gradient through the gather-fused kernel (K2) and through
+   gw_cost (K3) must raise; the envelope gradient against
+   ``unrolled_value``'s at converged fixed points (dense and full-support
+   spar, n = 10) within the reference's bound, and at
+   benchmarks/bench_diff.py --quick's spar size (n = 200, s = 8n, not
+   converged in its budget: gap, walls and memory printed); a 10-step
+   ``gw_barycenter`` of two n = 300 clouds through spar_gw must descend;
+   one ``trace=True`` solve on each route (spar, grid, dense, low rank
+   cut to 3 steps, quantized polished at n = 150) must record n_iters
+   iterations, ``repro_solves_total`` count them, and ``obs.report()``
+   of that run is printed;
 5. drive the grid main path: ``repro_torch.solve`` with
    ``GridGWSolver.default_config(2048)`` (s_r = s_c = 181) and
    ``use_kernel=True`` on the same Moon pair with the l1 loss; the
@@ -92,7 +114,8 @@ Phases; any failure raises and exits non-zero with no result line:
    idle share and the kernels that take the most device time; then each
    phase's wall time.
 
-The line before the last is the kernel JSON; the last line is
+The line before the last is the kernel JSON (K1's row also counts its
+launches on phase 4f's ``gw_loss``); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
 package ``repro``.
 """
@@ -136,6 +159,19 @@ QUANT_VALUE_RTOL = 1e-4   # card vs CPU, same draws (tests/test_torch_quantized)
 # to this many outer steps (each runs ~2000 inner iterations of ~25
 # launches and a host read; the full solve took 50, ~99 000 iterations)
 QUANT_PROFILE_OUTER = 1
+# phase 4f, gradients: two routes or two devices on one support agree
+# within this fraction of the largest entry of the gradient (the CPU
+# parity tests' bound against the reference, tests/test_torch_diff.py)
+GRAD_RTOL = 1e-4
+# the envelope against the unrolled gradient at a converged fixed point:
+# the reference's own bound on a relative gap in a directional derivative
+# (tests/test_diff.py's REL_TOL); converged means a marginal error below
+# 1e-4 and a last relative movement below 1e-5 (tests/test_torch_envelope)
+ENVELOPE_REL_TOL = 1e-3
+CONVERGED_ERR, CONVERGED_DELTA = 1e-4, 1e-5
+N_ENVELOPE = 10        # the converged cases (tests/test_torch_envelope.py)
+N_UNROLLED_SPAR = 200  # benchmarks/bench_diff.py --quick: s = 8n, 60 x 120
+BARY_STEPS = 10
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32
 # (non-tensor-core) flop/s and dense bf16 tensor-core flop/s. The GW
@@ -214,10 +250,10 @@ LM_LOGIT_REL = 1e-4
 LM_LOGIT_REL_3XTF32 = 12 * LM_LOGIT_REL
 
 
-def moon(n: int, seed: int = 0):
-    """The paper's Moon pair (§6.1): two noisy interleaved half circles,
-    Gaussian marginals N(n/3, n/20) and N(n/2, n/20) floored at 1e-9,
-    Euclidean distance matrices as costs (benchmarks/datasets.py)."""
+def moon_points(n: int, seed: int = 0):
+    """The paper's Moon pair (§6.1) as point clouds: two noisy interleaved
+    half circles (float64), with Gaussian marginals N(n/3, n/20) and
+    N(n/2, n/20) floored at 1e-9 (benchmarks/datasets.py)."""
     def points(rng):
         n1 = n // 2
         t1, t2 = np.pi * rng.random(n1), np.pi * rng.random(n - n1)
@@ -230,15 +266,20 @@ def moon(n: int, seed: int = 0):
         w = np.exp(-0.5 * ((idx - mean_frac * n) / (n / 20)) ** 2) + 1e-9
         return (w / w.sum()).astype(np.float32)
 
+    return (points(np.random.default_rng(seed)),
+            points(np.random.default_rng(seed + 1)),
+            weights(1 / 3), weights(1 / 2))
+
+
+def moon(n: int, seed: int = 0):
+    """The Moon pair with Euclidean distance matrices as costs."""
     def dist(x):
         sq = (x * x).sum(1)
         d2 = np.maximum(sq[:, None] + sq[None, :] - 2 * x @ x.T, 0.0)
         return np.sqrt(d2).astype(np.float32)
 
-    rng = np.random.default_rng(seed)
-    x = points(rng)
-    y = points(np.random.default_rng(seed + 1))
-    return dist(x), weights(1 / 3), dist(y), weights(1 / 2)
+    x, y, a, b = moon_points(n, seed)
+    return dist(x), a, dist(y), b
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
@@ -462,6 +503,7 @@ def main(parent: Path | None = None) -> int:
         select_anchors,
     )
     from repro_torch.multiscale.anchors import draw_anchors, draw_start
+    from repro_torch import diff, obs
     from repro_torch.models import Model
     from repro_torch.models import ssm as ssm_mod
 
@@ -472,7 +514,8 @@ def main(parent: Path | None = None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
@@ -514,6 +557,28 @@ def main(parent: Path | None = None) -> int:
     check(torch, "spar_matvec s=3001", spar_cost.spar_matvec_cuda(L, t, off),
           spar_cost.spar_matvec_plain(L, t, off),
           L.abs() @ t.abs() + off.abs())
+    # K1's autograd.Function (the kernel forward, a plain torch backward)
+    # against autograd through the plain version, at a ragged s: dLmat =
+    # g ⊗ t and doff = g exactly, dt = Lmatᵀ g within the kernel bound
+    s_g = 1003
+    ins = [rand(s_g, s_g), rand(s_g) - 0.5, rand(s_g, lo=-3.0)]
+    w_g = rand(s_g) - 0.5
+    got = [x.clone().requires_grad_(True) for x in ins]
+    want = [x.clone().requires_grad_(True) for x in ins]
+    out_k = spar_cost.spar_matvec_cuda(*got)
+    if "SparMatvec" not in type(out_k.grad_fn).__name__:
+        raise AssertionError(f"spar_matvec: no SparMatvec node "
+                             f"({out_k.grad_fn})")
+    g_k = torch.autograd.grad((out_k * w_g).sum(), got)
+    g_p = torch.autograd.grad(
+        (spar_cost.spar_matvec_plain(*want) * w_g).sum(), want)
+    torch.cuda.synchronize()
+    if not (torch.equal(g_k[0], g_p[0]) and torch.equal(g_k[2], g_p[2])):
+        raise AssertionError("spar_matvec backward: dLmat or doff differ "
+                             "from autograd through the plain version")
+    check(torch, f"spar_matvec backward dt s={s_g}", g_k[1], g_p[1],
+          ins[0].abs().t() @ w_g.abs())
+    del L, ins, got, want, out_k, g_k, g_p
     m, n = 777, 555
     Cx, Cy = rand(m, m, lo=0.05), rand(n, n, lo=0.05)
     rows = torch.randint(0, m, (s,), generator=gen, device=dev)
@@ -530,7 +595,7 @@ def main(parent: Path | None = None) -> int:
               spar_cost.launch_fused(Cx, Cy, rows_s.int(), cols_s.int(),
                                      t[perm], off, loss, 256,
                                      perm=perm.int()), want, scale)
-    del L, Cx, Cy
+    del Cx, Cy
     A, B = rand(177, 93, lo=0.05), rand(131, 205, lo=0.05)
     Tg = rand(93, 205)
     for loss in ("l1", "l2", "kl"):
@@ -972,6 +1037,327 @@ def main(parent: Path | None = None) -> int:
     print(json.dumps({"failure_path": {"n": N_SMALL, "raise": "raised",
                                        "fallback_rung": rungs}}))
 
+    # -- 4f. differentiation (diff) and telemetry (obs) --------------------
+    stamps.append(("4f", time.perf_counter()))
+    diff_runs = {"card": card}
+
+    def peak_gib(base):
+        return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    def grad_gap(got, want):
+        """max |got - want| over the largest |want|, raising above
+        GRAD_RTOL (and on a non-finite entry)."""
+        gap = max(float((g - w).abs().max() / w.abs().max())
+                  for g, w in zip(got, want))
+        if not (math.isfinite(gap) and gap <= GRAD_RTOL):
+            raise AssertionError(f"gradients disagree: {gap} > {GRAD_RTOL}")
+        return gap
+
+    # gw_loss on the Moon pair at n = 2048 with no solver: auto-selected
+    # spar_gw (s = 16n = 32768), cost_impl "auto" = the materialized loss
+    # matrix and K1; the gradient with respect to both point clouds
+    mx, my, ma, mb = moon_points(N_MAIN, seed=0)
+
+    def clouds(x, y, grad=True):
+        return [torch.tensor(v, dtype=torch.float32, device=dev,
+                             requires_grad=grad) for v in (x, y)]
+
+    def weights(a, b):
+        return [torch.tensor(v, device=dev) for v in (a, b)]
+
+    xg, yg = clouds(mx, my)
+    wa, wb = weights(ma, mb)
+    gp = repro_torch.QuadraticProblem(
+        repro_torch.Geometry.from_points(xg, wa, validate=False),
+        repro_torch.Geometry.from_points(yg, wb, validate=False),
+        validate=False)
+    d_auto = repro_torch.select_solver(gp)
+    if not (isinstance(d_auto, SparGWSolver) and d_auto.s == 16 * N_MAIN
+            and ops.resolve_impl(d_auto.cost_impl, d_auto.s, dev)
+            == "materialized"):
+        raise AssertionError(f"gw_loss: auto-selection gave {d_auto}")
+    d_support = sampling.sample_pairs(
+        torch.Generator(dev).manual_seed(0),
+        sampling.balanced_probs(wa, wb, d_auto.shrink), d_auto.s)
+
+    def moon_grad(label):
+        """gw_loss and its gradient on the Moon pair: walls, peak memory
+        and K1's launches of the forward and the backward."""
+        x, y = clouds(mx, my)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        spar_cost.reset_launch_counts()
+        t0 = time.perf_counter()
+        value = diff.gw_loss(x, y, wa, wb, support=d_support)
+        v = float(value.detach())
+        forward_s = time.perf_counter() - t0
+        fwd_launches = dict(spar_cost.LAUNCHES)
+        t0 = time.perf_counter()
+        grads = torch.autograd.grad(value, [x, y])
+        torch.cuda.synchronize()
+        backward_s = time.perf_counter() - t0
+        bwd_launches = {k: c - fwd_launches[k]
+                        for k, c in spar_cost.LAUNCHES.items()}
+        if not all(bool(g.isfinite().all()) for g in grads):
+            raise AssertionError(f"gw_loss ({label}): non-finite gradient")
+        run = {"value": v, "forward_s": forward_s, "backward_s": backward_s,
+               "peak_memory_gib_above_start": peak_gib(base),
+               "launches_forward": fwd_launches,
+               "launches_backward": bwd_launches,
+               "grad_norm_x": float(grads[0].norm()),
+               "grad_norm_y": float(grads[1].norm())}
+        del value
+        return run, grads
+
+    diff_runs["gw_loss"], k1_grads = moon_grad("K1")
+    diff_launches = diff_runs["gw_loss"]["launches_forward"]
+    if diff_launches != {"spar_matvec": d_auto.outer_iters + 1,
+                         "spar_cost_fused": 0} or any(
+            diff_runs["gw_loss"]["launches_backward"].values()):
+        raise AssertionError(f"gw_loss: launches {diff_runs['gw_loss']}, "
+                             f"expected K1 {d_auto.outer_iters + 1} times "
+                             f"in the forward and no kernel in the backward")
+    # the same gradient with K1's plain version swapped in, on the card
+    real_matvec = ops.spar_matvec_cuda
+    ops.spar_matvec_cuda = (lambda Lmat, t, off, threads=256:
+                            spar_cost.spar_matvec_plain(Lmat, t, off))
+    try:
+        diff_runs["gw_loss_plain_k1"], plain_grads = moon_grad("plain K1")
+    finally:
+        ops.spar_matvec_cuda = real_matvec
+    diff_runs["gw_loss"]["grad_gap_vs_plain_k1"] = grad_gap(k1_grads,
+                                                            plain_grads)
+    del k1_grads, plain_grads
+
+    # the card against the CPU port at n = 300 on one support
+    sx, sy, sa, sb = moon_points(N_SMALL, seed=1)
+    s_solver = SparGWSolver.default_config(N_SMALL)
+    s_support = sampling.sample_pairs(
+        torch.Generator().manual_seed(1),
+        sampling.balanced_probs(torch.tensor(sa), torch.tensor(sb),
+                                s_solver.shrink), s_solver.s)
+    small_grads = {}
+    for where in ("card", "cpu"):
+        on = dev if where == "card" else torch.device("cpu")
+        x, y = [torch.tensor(v, dtype=torch.float32, device=on,
+                             requires_grad=True) for v in (sx, sy)]
+        value = diff.gw_loss(x, y, torch.tensor(sa), torch.tensor(sb),
+                             solver=s_solver, device=on,
+                             support=tuple(t.to(on) for t in s_support))
+        small_grads[where] = [g.cpu() for g in
+                              torch.autograd.grad(value, [x, y])]
+    diff_runs["small_grad_gap_card_vs_cpu"] = grad_gap(small_grads["card"],
+                                                       small_grads["cpu"])
+
+    # fgw_loss with features at n = 2048: the quadratic part of the
+    # gradient (the point clouds' share) must be nonzero: through K1's
+    # Function it flows; a kernel output with no gradient would drop it
+    frng = np.random.default_rng(7)
+    x, y = clouds(mx, my)
+    fx, fy = clouds(frng.standard_normal((N_MAIN, 3)),
+                    frng.standard_normal((N_MAIN, 3)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    spar_cost.reset_launch_counts()
+    t0 = time.perf_counter()
+    value = diff.fgw_loss(x, y, fx, fy, fused_penalty=0.5, a=wa, b=wb,
+                          support=d_support)
+    gq_x, gq_y, gl_x, gl_y = torch.autograd.grad(value, [x, y, fx, fy])
+    torch.cuda.synchronize()
+    quad_norm = float(torch.sqrt(gq_x.norm() ** 2 + gq_y.norm() ** 2))
+    lin_norm = float(torch.sqrt(gl_x.norm() ** 2 + gl_y.norm() ** 2))
+    if not (math.isfinite(quad_norm) and quad_norm > 0.0
+            and math.isfinite(lin_norm) and lin_norm > 0.0):
+        raise AssertionError(f"fgw_loss: quadratic part {quad_norm}, "
+                             f"linear part {lin_norm}")
+    diff_runs["fgw_loss"] = {
+        "value": float(value.detach()), "wall_s": time.perf_counter() - t0,
+        "grad_norm_quadratic_part": quad_norm,
+        "grad_norm_linear_part": lin_norm,
+        "peak_memory_gib_above_start": peak_gib(base),
+        "launches": dict(spar_cost.LAUNCHES)}
+    del value, gq_x, gq_y, gl_x, gl_y, x, y, fx, fy
+    torch.cuda.empty_cache()
+
+    # K2 and K3 refuse a gradient, as the reference's Pallas kernels do
+    x, y = [torch.tensor(v, dtype=torch.float32, device=dev,
+                         requires_grad=True) for v in (sx, sy)]
+    refused = {}
+    for kernel, kw in (
+            ("spar_cost_fused", dict(solver=dataclasses.replace(
+                s_solver, cost_impl="pallas"))),
+            ("gw_cost", dict(loss=GRID_LOSS, solver=dataclasses.replace(
+                GridGWSolver.default_config(N_SMALL), use_kernel=True)))):
+        try:
+            diff.gw_loss(x, y, torch.tensor(sa), torch.tensor(sb),
+                         generator=torch.Generator(dev).manual_seed(2), **kw)
+        except RuntimeError as exc:
+            if kernel not in str(exc):
+                raise
+            refused[kernel] = str(exc).split(":")[0]
+        else:
+            raise AssertionError(f"{kernel}: a gradient did not raise")
+    diff_runs["refused"] = refused
+
+    # the envelope against the unrolled gradient, at converged fixed points
+    # (tests/test_torch_envelope.py's cases on the card: dense, and spar on
+    # the full n x n support, where it runs the dense dynamics through K1
+    # and the sparse Sinkhorn), then at benchmarks/bench_diff.py --quick's
+    # spar size, which these budgets do not converge
+    def near_isometric(n):
+        rng = np.random.default_rng(0)
+        x = rng.standard_normal((n, 2))
+        th = 0.7
+        rot = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+        y = x @ rot.T + 0.1 * rng.standard_normal((n, 2))
+        return [np.maximum((z * z).sum(1)[:, None] + (z * z).sum(1)[None]
+                           - 2 * z @ z.T, 0).astype(np.float32)
+                for z in (x, y)]
+
+    def envelope_vs_unrolled(Cx_e, Cy_e, solver, converged, **kw):
+        n_e = Cx_e.shape[0]
+        w_e = torch.full((n_e,), 1.0 / n_e, device=dev)
+        Cy_t = torch.tensor(Cy_e, device=dev)
+
+        def problem_of(C):
+            return repro_torch.QuadraticProblem(
+                repro_torch.Geometry(C, w_e, validate=False),
+                repro_torch.Geometry(Cy_t, w_e, validate=False),
+                validate=False)
+        D = torch.tensor(np.random.default_rng(1).standard_normal(
+            (n_e, n_e)), dtype=torch.float32, device=dev)
+        D = (D + D.t()) / 2
+        row = {}
+        for name in ("envelope", "unrolled"):
+            C = torch.tensor(Cx_e, device=dev, requires_grad=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            if name == "envelope":
+                out = repro_torch.solve(problem_of(C), solver, **kw)
+                value = out.value
+            else:
+                value = diff.unrolled_value(problem_of(C), solver, **kw)
+            g, = torch.autograd.grad(value, C)
+            torch.cuda.synchronize()
+            row[name] = {"wall_s": time.perf_counter() - t0,
+                         "peak_memory_mib_above_start": peak_gib(base) * 1024,
+                         "directional_derivative": float((g * D).sum())}
+            if not bool(g.isfinite().all()):
+                raise AssertionError(f"{name} gradient not finite")
+        u, v = (row[k]["directional_derivative"]
+                for k in ("envelope", "unrolled"))
+        row["relative_gap"] = abs(u - v) / max(abs(u), abs(v), 1e-12)
+        last = out.n_iters - 1
+        row["marginal_err"] = float(out.errors[last])
+        row["last_delta"] = float(out.trace.delta[last])
+        row["converged"] = (row["marginal_err"] < CONVERGED_ERR
+                            and row["last_delta"] < CONVERGED_DELTA)
+        if converged and not (row["converged"] and
+                              row["relative_gap"] <= ENVELOPE_REL_TOL):
+            raise AssertionError(f"envelope vs unrolled: {row}")
+        return row
+
+    Cx_e, Cy_e = near_isometric(N_ENVELOPE)
+    n2 = N_ENVELOPE * N_ENVELOPE
+    full = (torch.arange(N_ENVELOPE, device=dev).repeat_interleave(
+        N_ENVELOPE), torch.arange(N_ENVELOPE, device=dev).repeat(N_ENVELOPE))
+    converged_kw = dict(epsilon=5e-2, outer_iters=20, inner_iters=50,
+                        trace=True)
+    envelope = {
+        "dense_n10": envelope_vs_unrolled(
+            Cx_e, Cy_e, DenseGWSolver(**converged_kw), True),
+        "spar_n10_full_support": envelope_vs_unrolled(
+            Cx_e, Cy_e, SparGWSolver(s=n2, **converged_kw), True,
+            support=full)}
+    bx = np.random.default_rng(0).standard_normal((N_UNROLLED_SPAR, 3))
+    by = np.random.default_rng(1).standard_normal((N_UNROLLED_SPAR, 3))
+    bcost = [(np.maximum((z * z).sum(1)[:, None] + (z * z).sum(1)[None]
+                         - 2 * z @ z.T, 0) / 10.0).astype(np.float32)
+             for z in (bx, by)]
+    u_solver = SparGWSolver(epsilon=5e-2, s=8 * N_UNROLLED_SPAR,
+                            outer_iters=60, inner_iters=120, trace=True)
+    u_w = torch.full((N_UNROLLED_SPAR,), 1.0 / N_UNROLLED_SPAR, device=dev)
+    u_support = sampling.sample_pairs(
+        torch.Generator(dev).manual_seed(0),
+        sampling.balanced_probs(u_w, u_w, u_solver.shrink), u_solver.s)
+    spar_cost.reset_launch_counts()
+    envelope[f"spar_n{N_UNROLLED_SPAR}_s8n"] = envelope_vs_unrolled(
+        *bcost, u_solver, False, support=u_support)
+    envelope[f"spar_n{N_UNROLLED_SPAR}_s8n"]["launches"] = dict(
+        spar_cost.LAUNCHES)
+    diff_runs["envelope_vs_unrolled"] = envelope
+
+    # gw_barycenter of the two Moon clouds at n = 300 through spar_gw (K1)
+    spar_cost.reset_launch_counts()
+    t0 = time.perf_counter()
+    bary = diff.gw_barycenter(
+        [torch.tensor(v, dtype=torch.float32, device=dev) for v in (sx, sy)],
+        N_SMALL, torch.Generator(dev).manual_seed(3), steps=BARY_STEPS,
+        solver=s_solver)
+    objectives = bary.objectives.tolist()
+    if not (all(math.isfinite(o) for o in objectives)
+            and objectives[0] > objectives[-1]):
+        raise AssertionError(f"barycenter did not descend: {objectives}")
+    diff_runs["barycenter"] = {
+        "n": N_SMALL, "steps": BARY_STEPS, "objectives": objectives,
+        "wall_s": time.perf_counter() - t0,
+        "launches": dict(spar_cost.LAUNCHES)}
+    print(json.dumps({"diff_path": diff_runs}))
+
+    # one trace=True solve on each route; obs.report() of the run
+    obs.registry().clear()
+    obs.clear_spans()
+    dxp, dap, dyp, dbp = moon(N_DENSE, seed=2)
+    dense_p = repro_torch.QuadraticProblem(repro_torch.Geometry(dxp, dap),
+                                           repro_torch.Geometry(dyp, dbp))
+    traced = {
+        "spar_auto": lambda: repro_torch.solve(
+            problem, dataclasses.replace(auto, trace=True), support=support),
+        "grid": lambda: repro_torch.solve(
+            repro_torch.QuadraticProblem(repro_torch.Geometry(Cx_np, a_np),
+                                         repro_torch.Geometry(Cy_np, b_np),
+                                         loss=GRID_LOSS),
+            dataclasses.replace(GridGWSolver.default_config(N_MAIN),
+                                use_kernel=True, trace=True),
+            generator=torch.Generator(dev).manual_seed(0)),
+        "dense": lambda: repro_torch.solve(dense_p, dataclasses.replace(
+            repro_torch.select_solver(dense_p), trace=True)),
+        f"lowrank_{LOWRANK_PROFILE_STEPS}_steps": lambda: repro_torch.solve(
+            lr_problem, dataclasses.replace(
+                lr_solver, outer_iters=LOWRANK_PROFILE_STEPS, trace=True),
+            generator=torch.Generator(dev).manual_seed(0)),
+        # the coarse dense solve cut to 5 outer steps (its default 50 run
+        # ~2000 inner iterations each, ~30 s on its own; phase 4e runs it)
+        "quantized_polished": lambda: repro_torch.solve(
+            qsmall, dataclasses.replace(polished, trace=True, base=(
+                dataclasses.replace(polished.base, outer_iters=5))),
+            draws=QuantizedDraws(*starts)),
+    }
+    trace_rows = {}
+    for name, run in traced.items():
+        out = run()
+        n_rec = obs.n_valid(out.trace)
+        if n_rec != out.n_iters or not out.status.is_healthy:
+            raise AssertionError(f"trace {name}: {n_rec} recorded, "
+                                 f"{out.n_iters} iterations, {out.status}")
+        trace_rows[name] = {"n_iters": out.n_iters,
+                            "last_objective": float(
+                                out.trace.objective[out.n_iters - 1])}
+    counted = sum(row["value"] for row in obs.registry().snapshot()[
+        "metrics"]["repro_solves_total"]["series"])
+    if counted != len(traced):
+        raise AssertionError(f"repro_solves_total {counted}, "
+                             f"{len(traced)} solves")
+    print(json.dumps({"traces": trace_rows}))
+    print(json.dumps({"obs_report": obs.report()}))
+    del bary, out
+    torch.cuda.empty_cache()
+
     # -- 5. the grid main path ---------------------------------------------
     stamps.append(("5", time.perf_counter()))
     grid_problem = repro_torch.QuadraticProblem(
@@ -1275,6 +1661,7 @@ def main(parent: Path | None = None) -> int:
         "launches_quantized": quant_launches["polished"]["spar_matvec"],
         "launches_quantized_spar_base": quant_launches["spar_base"][
             "spar_matvec"],
+        "launches_diff": diff_launches["spar_matvec"],
         "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": lib_ms})

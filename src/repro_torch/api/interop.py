@@ -111,7 +111,8 @@ def output_to_numpy(out: GWOutput) -> dict:
     """The port's output as numpy arrays and Python numbers. The coupling
     comes as ``rows``, ``cols`` and ``vals`` (COO), ``rows``, ``cols`` and
     ``block`` (grid), ``q``, ``r`` and ``g`` (low rank), the fields of a
-    ``QuantizedCoupling`` or ``dense``."""
+    ``QuantizedCoupling`` or ``dense``; ``trace`` is None or a dict of the
+    trace's buffers."""
     st = out.status
     c = out.coupling
     if isinstance(c, QuantizedCoupling):
@@ -125,11 +126,13 @@ def output_to_numpy(out: GWOutput) -> dict:
     else:
         coupling = {"rows": c.rows, "cols": c.cols, "vals": c.vals}
     return {
-        "value": float(out.value),
+        "value": float(out.value.detach()),
         **{k: v.cpu().numpy() for k, v in coupling.items()},
         "errors": out.errors.cpu().numpy(),
         "converged": bool(out.converged),
         "n_iters": int(out.n_iters),
         "status": {"code": st.code, "fail_iter": st.fail_iter,
                    "last_err": st.last_err, "n_rescues": st.n_rescues},
+        "trace": None if out.trace is None else {
+            k: v.cpu().numpy() for k, v in out.trace._asdict().items()},
     }

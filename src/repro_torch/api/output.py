@@ -125,7 +125,9 @@ class GWOutput:
     converged — True iff the outer loop met its tolerance (False at tol=0)
     n_iters   — outer iterations taken, rescue attempts included
     status    — :class:`~repro_torch.health.status.SolveStatus`
-    trace     — always None until convergence traces are ported
+    trace     — a :class:`~repro_torch.obs.trace.ConvergenceTrace` when the
+                solver ran with ``trace=True`` (the coarse solve's for
+                ``quantized_gw``), else None
     """
     value: Any
     coupling: Any

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.api.geometry import Geometry
 from repro_torch.core import ground_cost as gc
+from repro_torch.core.utils import scalar
 
 _MASS_ATOL = 1e-4
 
@@ -67,7 +68,7 @@ class QuadraticProblem:
                 raise ValueError(
                     "fused_penalty set but no linear term: provide M or put "
                     "features on both geometries")
-            alpha = float(self.fused_penalty)
+            alpha = scalar(self.fused_penalty)
             if not 0.0 < alpha <= 1.0:
                 raise ValueError(
                     f"fused_penalty must lie in (0, 1], got {alpha}")
@@ -76,8 +77,8 @@ class QuadraticProblem:
             raise ValueError(
                 "features must be set on both geometries (or neither) "
                 "when no explicit M is given")
-        if self.lam is not None and float(self.lam) <= 0.0:
-            raise ValueError(f"lam must be > 0, got {float(self.lam)}")
+        if self.lam is not None and scalar(self.lam) <= 0.0:
+            raise ValueError(f"lam must be > 0, got {scalar(self.lam)}")
         if self.lam is None:
             for name, w in (("geom_x", self.geom_x.weights),
                             ("geom_y", self.geom_y.weights)):
@@ -87,15 +88,20 @@ class QuadraticProblem:
                         f"{name}.weights must sum to 1 for a balanced "
                         f"problem (got {total:.6f}); normalize them or "
                         f"pass lam=... for an unbalanced problem")
+        object.__setattr__(self, "_validated", True)
         return self
 
     def to(self, device) -> "QuadraticProblem":
-        """The same problem with every array on ``device``."""
-        return QuadraticProblem(
+        """The same problem with every array on ``device`` (checked if this
+        one was)."""
+        moved = QuadraticProblem(
             self.geom_x.to(device), self.geom_y.to(device), self.loss,
             self.fused_penalty,
             None if self.M is None else self.M.to(device), self.lam,
             validate=False)
+        if getattr(self, "_validated", False):
+            object.__setattr__(moved, "_validated", True)
+        return moved
 
     @property
     def shape(self):

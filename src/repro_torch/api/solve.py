@@ -6,6 +6,19 @@
 With ``solver=None`` a solver is auto-selected from the problem's
 structure (:func:`select_solver`, same thresholds as the reference). The
 solve runs on the CUDA card unless ``device`` says otherwise.
+
+Telemetry, as in the reference (``repro_torch.obs``): the spans
+``solve``, ``solve.select``, ``solve.validate``, ``solve.dispatch`` and
+``solve.fallback``, and the counters ``repro_solves_total`` (by solver
+and status), ``repro_rescues_total``, ``repro_solve_failures_total``,
+``repro_fallback_attempts_total`` and ``repro_fallback_recoveries_total``.
+Two differences, both because the port has no ``jit``: a dispatch is
+never marked ``compiled`` (there is no executable cache to grow; every
+``solve.dispatch`` record carries ``compiled=False``), and every solve's
+outcome is counted and noted for ``obs.report()``, not only under
+``on_failure != "none"``: the reference skips that to keep its
+dispatch asynchronous, while the port's loop has read the status on the
+host already (noting the value adds one host read at the end).
 """
 from __future__ import annotations
 
@@ -19,6 +32,9 @@ from repro_torch.api.solvers import get_solver
 from repro_torch.health.fallback import fallback_chain
 from repro_torch.health.status import STALLED, SolveDivergedError
 from repro_torch.kernels import dispatch
+from repro_torch.obs.registry import registry
+from repro_torch.obs.report import note_solve
+from repro_torch.obs.span import span
 
 # auto-selection size thresholds (max(m, n)); see select_solver
 AUTO_DENSE_MAX = 256
@@ -76,16 +92,42 @@ def _solve_failed(out) -> bool:
     """Failure predicate: DIVERGED/STALLED status or a non-finite value."""
     if out.status is not None and out.status.code >= STALLED:
         return True
-    return not math.isfinite(float(out.value))
+    return not math.isfinite(float(out.value.detach()))
 
 
 def _name(solver) -> str:
     return getattr(type(solver), "name", type(solver).__name__)
 
 
+def _dispatch(solver, problem, name: str, **run_kw):
+    """One solver run under a ``solve.dispatch`` span (never ``compiled``:
+    nothing is compiled in front of a solve)."""
+    with span("solve.dispatch", solver=name) as sp:
+        out = solver.run(problem, **run_kw)
+        sp["compiled"] = False
+    return out
+
+
+def _record_outcome(solver_name: str, out) -> None:
+    """Registry counters for a finished solve, and ``obs.note_solve``."""
+    try:
+        reg = registry()
+        status_name = ("UNKNOWN" if out.status is None
+                       else out.status.describe())
+        reg.counter("repro_solves_total", "completed solves by status",
+                    solver=solver_name, status=status_name).inc()
+        if out.status is not None:
+            reg.counter("repro_rescues_total",
+                        "eps-rescue restarts consumed",
+                        solver=solver_name).inc(float(out.status.n_rescues))
+        note_solve(out, solver=solver_name)
+    except Exception:  # noqa: BLE001 — telemetry must never break a solve
+        pass
+
+
 def solve(problem: QuadraticProblem, solver: Union[str, object, None] = None,
           generator=None, support=None, device=None, draws=None,
-          on_failure: str = "none"):
+          on_failure: str = "none", validate: bool = True):
     """Solve a QuadraticProblem; returns a ``GWOutput``.
 
     solver     — a solver config instance, a registry name (that solver's
@@ -113,6 +155,8 @@ def solve(problem: QuadraticProblem, solver: Union[str, object, None] = None,
                    :func:`attempt_generator`; returns the first healthy
                    result, or the original failed output if every rung
                    fails
+    validate   — run the problem's checks if they have not run yet (a
+                 problem built with ``validate=True`` has run them)
 
     ``support`` and ``draws`` are parity hooks: the tests inject the JAX
     reference's draws (threefry cannot be reproduced in torch) through
@@ -123,31 +167,52 @@ def solve(problem: QuadraticProblem, solver: Union[str, object, None] = None,
             f"on_failure must be 'none', 'raise' or 'fallback', got "
             f"{on_failure!r}")
     dev = dispatch.resolve_device(device)
-    if solver is None:
-        solver = select_solver(problem)
-    elif isinstance(solver, str):
-        solver = get_solver(solver).default_config(max(problem.shape))
-    problem = problem.to(dev)
-    kw = {} if draws is None else {"draws": draws}
-    out = solver.run(problem, generator=generator, support=support, **kw)
-    # the reference counts outcomes, failures, fallback attempts and
-    # recoveries in its metrics registry and wraps each stage in a span;
-    # those come with the port of telemetry (ROADMAP queue 1, item 14)
-    if on_failure == "none" or not _solve_failed(out):
+    with span("solve", on_failure=on_failure) as sp_solve:
+        if solver is None:
+            with span("solve.select"):
+                solver = select_solver(problem)
+        elif isinstance(solver, str):
+            solver = get_solver(solver).default_config(max(problem.shape))
+        primary = _name(solver)
+        sp_solve["solver"] = primary
+        if validate and not getattr(problem, "_validated", False):
+            with span("solve.validate"):
+                problem.check()
+        problem = problem.to(dev)
+        kw = {} if draws is None else {"draws": draws}
+        out = _dispatch(solver, problem, primary, generator=generator,
+                        support=support, **kw)
+        _record_outcome(primary, out)
+        if on_failure == "none" or not _solve_failed(out):
+            return out
+        registry().counter("repro_solve_failures_total",
+                           "solves unhealthy after eps-rescue",
+                           solver=primary).inc()
+        if on_failure == "raise":
+            raise SolveDivergedError(
+                f"{primary} failed: status="
+                f"{out.status.describe() if out.status is not None else None}"
+                f", value={float(out.value.detach())}", output=out)
+        with span("solve.fallback", solver=primary) as sp_fb:
+            sp_fb["recovered"] = False
+            for attempt, cand in enumerate(
+                    fallback_chain(problem, exclude=(primary,),
+                                   generator_available=generator is not None),
+                    start=1):
+                cand_name = _name(cand)
+                registry().counter("repro_fallback_attempts_total",
+                                   "solver-ladder rungs tried",
+                                   solver=cand_name).inc()
+                cand_gen = (None if generator is None
+                            else attempt_generator(generator, attempt))
+                cand_out = _dispatch(cand, problem, cand_name,
+                                     generator=cand_gen)
+                if not _solve_failed(cand_out):
+                    sp_fb["recovered"] = True
+                    sp_fb["recovered_by"] = cand_name
+                    registry().counter("repro_fallback_recoveries_total",
+                                       "failed solves rescued by the ladder",
+                                       solver=cand_name).inc()
+                    _record_outcome(cand_name, cand_out)
+                    return cand_out
         return out
-    primary = _name(solver)
-    if on_failure == "raise":
-        raise SolveDivergedError(
-            f"{primary} failed: status="
-            f"{out.status.describe() if out.status is not None else None}, "
-            f"value={float(out.value)}", output=out)
-    for attempt, cand in enumerate(
-            fallback_chain(problem, exclude=(primary,),
-                           generator_available=generator is not None),
-            start=1):
-        cand_gen = (None if generator is None
-                    else attempt_generator(generator, attempt))
-        cand_out = cand.run(problem, generator=cand_gen)
-        if not _solve_failed(cand_out):
-            return cand_out
-    return out

@@ -4,7 +4,13 @@ Each solver is a frozen dataclass registered in a name registry
 (``get_solver`` / ``available_solvers``); ``run(problem, generator,
 support)`` dispatches on the problem's structure: ``lam`` set → the
 unbalanced variant, a linear term → the fused one. The outer loop goes
-through :func:`repro_torch.api.driver.pga_loop`.
+through :func:`repro_torch.api.driver.pga_loop`, which runs it without
+autograd (the Danskin envelope); each solver then recomputes its value
+from the live problem data (costs, ``M`` / features, ``fused_penalty``,
+``lam``, marginals) at the returned fixed point, so the value's gradient
+is the envelope gradient. Each passes the reference's per-iteration
+objective as ``obj_fn``, which the loop evaluates for ``trace=True``
+only.
 """
 from __future__ import annotations
 
@@ -28,7 +34,12 @@ from repro_torch.core.sinkhorn import (
     sparse_sinkhorn_unbalanced_log,
 )
 from repro_torch.core.spar_ugw import _marginal_penalty
-from repro_torch.core.utils import flush_subnormal, log_floor, quadratic_kl
+from repro_torch.core.utils import (
+    flush_subnormal,
+    log_floor,
+    quadratic_kl,
+    scalar,
+)
 from repro_torch.kernels.spar_cost.ops import make_spar_cost_fn
 
 _REGISTRY: dict = {}
@@ -127,6 +138,11 @@ def _health_kw(solver):
                 trace=solver.trace)
 
 
+def _fused_value(quad, lin_term, alpha):
+    """α·quad + (1 - α)·lin_term, the fused objective."""
+    return alpha * quad + (1.0 - alpha) * lin_term
+
+
 def _rescaled(T_new, mT):
     """Alg. 3 step 10: T_new rescaled to the geometric mean of its own
     mass and the previous iterate's, sqrt(m(T) / m(T_new))·T_new."""
@@ -151,8 +167,8 @@ class SparGWSolver:
     (kernels/spar_cost). ``max_rescues`` / ``rescue_factor`` bound the
     ε-rescue restarts on detected divergence. ``fault`` takes a
     :class:`~repro_torch.health.faults.FaultSpec` that the loop injects;
-    ``trace=True`` raises until convergence traces are ported (ROADMAP
-    queue 1, item 14).
+    ``trace=True`` fills ``GWOutput.trace`` (a
+    :class:`~repro_torch.obs.trace.ConvergenceTrace`, objective included).
     """
     s: int = 0
     reg: str = "prox"
@@ -214,7 +230,7 @@ class SparGWSolver:
         cost_fn = make_spar_cost_fn(Cx, Cy, rows, cols, problem.loss,
                                     impl=self.cost_impl, chunk=self.cost_chunk)
         fused = problem.is_fused
-        alpha = float(problem.fused_penalty) if fused else 1.0
+        alpha = scalar(problem.fused_penalty) if fused else 1.0
         lin = problem.linear_cost_at(rows, cols) if fused else 0.0
         step = partial(_spar_pga_step, cost_fn=cost_fn, a=a, b=b, rows=rows,
                        cols=cols, w=w, logw=torch.log(w), m=m, n=n,
@@ -222,12 +238,22 @@ class SparGWSolver:
                        inner_tol=self.inner_tol, reg=self.reg,
                        stable=self.stable, alpha=alpha, lin=lin)
         err_fn = partial(_coo_marginal_err, rows=rows, cols=cols, a=a, b=b)
+
+        def obj_fn(t):          # the step-8 plug-in objective, per iteration
+            quad_t = torch.sum(t * cost_fn(t))
+            if fused:
+                return _fused_value(quad_t, torch.sum(lin * t), alpha)
+            return quad_t
+
         T, errors, n_iters, converged, status, trace = pga_loop(
-            step, err_fn, T0, self.outer_iters, self.tol, **_health_kw(self))
-        # Step 8: plug-in objective on the sparse support, O(s²).
+            step, err_fn, T0, self.outer_iters, self.tol, obj_fn=obj_fn,
+            **_health_kw(self))
+        # Step 8: plug-in objective on the sparse support, O(s²), from the
+        # live data (fused_penalty too: α may carry a gradient)
         quad = torch.sum(T * cost_fn(T))
         if fused:
-            value = alpha * quad + (1.0 - alpha) * torch.sum(lin * T)
+            value = _fused_value(quad, torch.sum(lin * T),
+                                 problem.fused_penalty)
         else:
             value = quad
         return GWOutput(value=value, coupling=SparseCoupling(rows, cols, T),
@@ -237,7 +263,7 @@ class SparGWSolver:
     def _run_unbalanced(self, problem, generator, support) -> GWOutput:
         Cx, a = problem.geom_x.cost_matrix, problem.geom_x.weights
         Cy, b = problem.geom_y.cost_matrix, problem.geom_y.weights
-        lam, loss, eps = float(problem.lam), problem.loss, self.epsilon
+        lam, loss, eps = scalar(problem.lam), problem.loss, self.epsilon
         m, n = a.shape[0], b.shape[0]
         scale = torch.sqrt(torch.sum(a) * torch.sum(b))
 
@@ -276,11 +302,20 @@ class SparGWSolver:
             return _rescaled(T_new, mT)
 
         err_fn = partial(_coo_marginal_err, rows=rows, cols=cols, a=a, b=b)
+
+        def obj_fn(t):          # Alg. 3 step-11 UGW objective, per iteration
+            mu_t, nu_t = _coo_marginals(t, rows, cols, m, n)
+            return _ugw_value(torch.sum(t * cost_fn(t)), mu_t, nu_t, a, b,
+                              lam)
+
         T, errors, n_iters, converged, status, trace = pga_loop(
-            step, err_fn, T0, self.outer_iters, self.tol, **_health_kw(self))
-        # Alg. 3 step 11: UGW objective on the sparse coupling
+            step, err_fn, T0, self.outer_iters, self.tol, obj_fn=obj_fn,
+            **_health_kw(self))
+        # Alg. 3 step 11: UGW objective on the sparse coupling, from the
+        # live data (λ and the marginals carry gradients through the KLs)
         mu, nu = _coo_marginals(T, rows, cols, m, n)
-        value = _ugw_value(torch.sum(T * cost_fn(T)), mu, nu, a, b, lam)
+        value = _ugw_value(torch.sum(T * cost_fn(T)), mu, nu, a, b,
+                           problem.lam)
         return GWOutput(value=value, coupling=SparseCoupling(rows, cols, T),
                         errors=errors, converged=converged, n_iters=n_iters,
                         status=status, trace=trace)
@@ -296,7 +331,7 @@ class DenseGWSolver:
     ``lam``) variants; the unbalanced path always runs in the log domain.
     Deterministic: it draws nothing, so ``solve`` needs no generator.
     ``fault`` takes a ``FaultSpec`` that the loop injects; ``trace=True``
-    raises until convergence traces are ported (item 14).
+    fills ``GWOutput.trace``.
     """
     reg: str = "prox"
     epsilon: Any = 1e-2
@@ -334,7 +369,7 @@ class DenseGWSolver:
         Cy, b = problem.geom_y.cost_matrix, problem.geom_y.weights
         loss = problem.loss
         fused = problem.is_fused
-        alpha = float(problem.fused_penalty) if fused else 1.0
+        alpha = scalar(problem.fused_penalty) if fused else 1.0
         M = problem.linear_cost_dense() if fused else None
         T0 = flush_subnormal(a[:, None] * b[None, :])
 
@@ -353,11 +388,20 @@ class DenseGWSolver:
                             self.inner_iters, tol=self.inner_tol)
 
         err_fn = partial(_dense_marginal_err, a=a, b=b)
+
+        def obj_fn(t):
+            quad_t = gw_objective(Cx, Cy, t, loss)
+            if fused:
+                return _fused_value(quad_t, torch.sum(M * t), alpha)
+            return quad_t
+
         T, errors, n_iters, converged, status, trace = pga_loop(
-            step, err_fn, T0, self.outer_iters, self.tol, **_health_kw(self))
+            step, err_fn, T0, self.outer_iters, self.tol, obj_fn=obj_fn,
+            **_health_kw(self))
         value = gw_objective(Cx, Cy, T, loss)
         if fused:
-            value = alpha * value + (1 - alpha) * torch.sum(M * T)
+            value = _fused_value(value, torch.sum(M * T),
+                                 problem.fused_penalty)
         return GWOutput(value=value, coupling=T, errors=errors,
                         converged=converged, n_iters=n_iters, status=status,
                         trace=trace)
@@ -365,7 +409,7 @@ class DenseGWSolver:
     def _run_unbalanced(self, problem) -> GWOutput:
         Cx, a = problem.geom_x.cost_matrix, problem.geom_x.weights
         Cy, b = problem.geom_y.cost_matrix, problem.geom_y.weights
-        lam, loss, eps = float(problem.lam), problem.loss, self.epsilon
+        lam, loss, eps = scalar(problem.lam), problem.loss, self.epsilon
         T0 = flush_subnormal(flush_subnormal(a[:, None] * b[None, :])
                              / torch.sqrt(torch.sum(a) * torch.sum(b)))
 
@@ -382,10 +426,16 @@ class DenseGWSolver:
             return _rescaled(T_new, mT)
 
         err_fn = partial(_dense_marginal_err, a=a, b=b)
+
+        def obj_fn(t):
+            return _ugw_value(torch.sum(t * dense_cost(Cx, Cy, t, loss)),
+                              t.sum(1), t.sum(0), a, b, lam)
+
         T, errors, n_iters, converged, status, trace = pga_loop(
-            step, err_fn, T0, self.outer_iters, self.tol, **_health_kw(self))
+            step, err_fn, T0, self.outer_iters, self.tol, obj_fn=obj_fn,
+            **_health_kw(self))
         value = _ugw_value(torch.sum(T * dense_cost(Cx, Cy, T, loss)),
-                           T.sum(1), T.sum(0), a, b, lam)
+                           T.sum(1), T.sum(0), a, b, problem.lam)
         return GWOutput(value=value, coupling=T, errors=errors,
                         converged=converged, n_iters=n_iters, status=status,
                         trace=trace)
@@ -445,7 +495,9 @@ class GridGWSolver:
     ``use_kernel`` routes the arbitrary-loss cost assembly through the
     ``gw_cost`` kernel; decomposable losses (l2, kl) take two matmuls
     either way. ``fault`` takes a ``FaultSpec`` that the loop injects;
-    ``trace=True`` raises until convergence traces are ported (item 14).
+    ``trace=True`` fills ``GWOutput.trace``. ``use_kernel=True`` with an
+    indecomposable loss refuses a gradient (the kernel has none, as in
+    the reference).
     """
     s_r: int = 0
     s_c: int = 0
@@ -504,8 +556,14 @@ class GridGWSolver:
                        inner_tol=self.inner_tol, reg=self.reg,
                        stable=self.stable)
         err_fn = partial(_dense_marginal_err, a=aR, b=bC)
+
+        def obj_fn(t):
+            return torch.sum(t * grid_cost(CxR, CyC, t, problem.loss,
+                                           self.use_kernel))
+
         T, errors, n_iters, converged, status, trace = pga_loop(
-            step, err_fn, T0, self.outer_iters, self.tol, **_health_kw(self))
+            step, err_fn, T0, self.outer_iters, self.tol, obj_fn=obj_fn,
+            **_health_kw(self))
         value = torch.sum(T * grid_cost(CxR, CyC, T, problem.loss,
                                         self.use_kernel))
         return GWOutput(value=value, coupling=GridCoupling(R, C, T),

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import ground_cost as gc
+from repro_torch.core.sinkhorn import sinkhorn
 from repro_torch.core.utils import flush_subnormal
 from repro_torch.kernels.gw_cost.ops import gw_cost
 from repro_torch.kernels.gw_cost.ref import gw_cost_ref
@@ -52,3 +53,22 @@ def _dedup_marginal(idx, full_weight, n_total: int):
         0, idx, torch.ones(idx.shape[0], dtype=torch.float32,
                            device=idx.device))
     return flush_subnormal(full_weight[idx] / counts[idx])
+
+
+def grid_spar_gw_differentiable(a, b, CxR, CyC, aR, bC, w, loss: str,
+                                epsilon: float, outer_iters: int,
+                                inner_iters: int):
+    """Differentiable core of grid SPAR-GW (entropic, unrolled) for an
+    alignment loss: takes the pre-gathered sub-blocks, so autograd flows
+    into CxR / CyC (and aR, bC, w). A fixed ``outer_iters`` x
+    ``inner_iters`` budget through the plain cost assembly and the plain
+    dense Sinkhorn. Returns ``(value, T)``; ``a`` and ``b`` are unused, as
+    in the reference's signature.
+    """
+    T = flush_subnormal(aR[:, None] * bC[None, :])
+    for _ in range(outer_iters):
+        Cmat = grid_cost(CxR, CyC, T, loss)
+        Cs = Cmat - torch.min(Cmat).detach()   # Sinkhorn-invariant shift
+        K = flush_subnormal(flush_subnormal(torch.exp(-Cs / epsilon)) * w)
+        T = sinkhorn(aR, bC, K, inner_iters, differentiable=True)
+    return torch.sum(T * grid_cost(CxR, CyC, T, loss)), T

@@ -18,6 +18,12 @@ import torch
 FLT_MIN = torch.finfo(torch.float32).tiny     # smallest normal float32
 
 
+def scalar(x) -> float:
+    """A problem scalar (``fused_penalty``, ``lam``) as a Python float: a
+    tensor's value, read without autograd (it may require grad)."""
+    return float(x.detach()) if isinstance(x, torch.Tensor) else float(x)
+
+
 def flush_subnormal(x):
     """x with every entry of magnitude below the smallest normal set to 0.
 
@@ -39,11 +45,14 @@ def safe_div(num, den):
     """num / den with 0 where den == 0 (dead Sinkhorn rows/cols).
 
     Inputs and output are flushed, so a subnormal denominator counts as 0
-    exactly as in the reference.
+    exactly as in the reference. As there, the dropped entries divide by 1
+    instead of 0, so their gradient is 0 and not NaN (autograd multiplies
+    the zero cotangent of the dropped branch by 1/den).
     """
     # den > 0 once den is flushed; where it is not, the quotient is dropped
     pos = den >= FLT_MIN
-    return flush_subnormal(torch.where(pos, flush_subnormal(num) / den, 0.0))
+    return flush_subnormal(torch.where(
+        pos, flush_subnormal(num) / torch.where(pos, den, 1.0), 0.0))
 
 
 def div_floor(num, den):

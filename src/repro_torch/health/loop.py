@@ -21,8 +21,17 @@ what it did without the hook.
 
 The loop runs on the host, one step at a time: the health verdict of each
 step is read on the host (one synchronisation per outer iteration), so no
-lane masking is needed. Convergence traces are not ported yet (ROADMAP
-queue 1, item 14).
+lane masking is needed.
+
+With ``trace=True`` the loop also fills a
+:class:`~repro_torch.obs.trace.ConvergenceTrace`: per iteration the
+marginal error, the objective (``obj_fn``, evaluated only then), the
+relative movement, the mass, the step scale and the rescue flag, written
+into NaN-filled buffers on the iterate's device, so the trace adds no
+host read. As in the reference, err/objective/delta describe an accepted
+step and mass/scale/rescued every attempt, so a rescued iteration keeps
+the exploded mass that triggered it. With ``trace=False`` nothing of this
+runs.
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ from repro_torch.health.status import (
     STALLED,
     SolveStatus,
 )
+from repro_torch.obs.trace import ConvergenceTrace, empty_trace
 
 _TINY = 1e-30
 
@@ -59,7 +69,7 @@ class LoopResult(NamedTuple):
     n_iters: int            # iterations consumed (including rescue attempts)
     converged: bool         # tolerance met (False under tol=0)
     status: SolveStatus
-    trace: Optional[Any] = None
+    trace: Optional[ConvergenceTrace] = None    # None unless trace=True
 
 
 def _leaves(T):
@@ -82,7 +92,8 @@ def health_loop(step_fn: Callable, err_fn: Callable, T0, max_iters: int,
                 mass_ceil: float = DEFAULT_MASS_CEIL,
                 stall_err: float = DEFAULT_STALL_ERR,
                 fault: Optional[Any] = None,
-                trace: bool = False) -> LoopResult:
+                trace: bool = False,
+                obj_fn: Optional[Callable] = None) -> LoopResult:
     """Iterate ``T <- step_fn(T[, scale])`` with health instrumentation.
 
     step_fn     — one outer solver step; with ``scaled_step`` it receives
@@ -94,18 +105,21 @@ def health_loop(step_fn: Callable, err_fn: Callable, T0, max_iters: int,
                   stays False)
     max_rescues — divergence restarts before the solve ends DIVERGED
     fault       — optional FaultSpec (see health/faults.py)
+    trace       — fill and return a ConvergenceTrace (``result.trace``;
+                  None when False)
+    obj_fn      — per-iteration objective ``obj_fn(T_new) -> scalar`` for
+                  the trace; evaluated only when ``trace=True``
     """
     if fault is not None and not isinstance(fault, FaultSpec):
         raise TypeError(f"fault must be a FaultSpec or None, got "
                         f"{type(fault).__name__}")
-    if trace:
-        raise NotImplementedError(
-            "convergence traces are not ported yet (ROADMAP queue 1, "
-            "item 14)")
+    device = _leaves(T0)[0].device
     errors = torch.full((max(max_iters, 0),), math.nan, dtype=torch.float32,
-                        device=_leaves(T0)[0].device)
+                        device=device)
+    tr = empty_trace(max(max_iters, 0), device) if trace else None
     if max_iters <= 0:
-        return LoopResult(T0, errors, 0, False, SolveStatus.healthy(MAXITER))
+        return LoopResult(T0, errors, 0, False, SolveStatus.healthy(MAXITER),
+                          tr)
 
     T = T0
     last_err = None
@@ -113,8 +127,9 @@ def health_loop(step_fn: Callable, err_fn: Callable, T0, max_iters: int,
     while i < max_iters and not (conv or dead):
         T_in = fault.apply(T, i) if fault is not None and \
             fault.site == "cost" else T
+        scale = rescue_factor ** n_rescues
         if scaled_step:
-            T_new = step_fn(T_in, rescue_factor ** n_rescues)
+            T_new = step_fn(T_in, scale)
         else:
             T_new = step_fn(T_in)
         if fault is not None and fault.site == "iterate":
@@ -122,15 +137,25 @@ def health_loop(step_fn: Callable, err_fn: Callable, T0, max_iters: int,
         l1 = _tree_l1(T_new)
         healthy = bool(tree_finite(T_new) & (l1 > mass_floor)
                        & (l1 < mass_ceil))
+        if trace:
+            tr.mass[i] = l1
+            tr.scale[i] = scale
+            tr.rescued[i] = float(not healthy and n_rescues < max_rescues)
         if healthy:
             err = err_fn(T_new).float()
             errors[i] = err
             last_err = err
-            if tol > 0:
+            if tol > 0 or trace:
                 num = _tree_l1(tuple(x - y for x, y in
                                      zip(_leaves(T_new), _leaves(T))))
                 delta = num / torch.clamp_min(_tree_l1(T), _TINY)
+            if tol > 0:
                 conv = bool(delta <= tol)
+            if trace:
+                tr.err[i] = err
+                tr.delta[i] = delta
+                if obj_fn is not None:
+                    tr.objective[i] = obj_fn(T_new)
             T = T_new
         else:
             # restart from the current, still-healthy T with escalated
@@ -153,4 +178,4 @@ def health_loop(step_fn: Callable, err_fn: Callable, T0, max_iters: int,
     else:
         code = MAXITER
     return LoopResult(T, errors, i, conv,
-                      SolveStatus(code, fail_iter, last, n_rescues))
+                      SolveStatus(code, fail_iter, last, n_rescues), tr)

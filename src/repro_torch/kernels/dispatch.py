@@ -38,6 +38,27 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def refuse_grad(kernel: str, *inputs) -> None:
+    """Raise if autograd would have to differentiate through ``kernel``.
+
+    The reference's Pallas kernels have no reverse-mode rule (``jax.grad``
+    through them raises, in interpret mode too), and neither have their
+    CUDA counterparts here: with grad enabled and any tensor among
+    ``inputs`` requiring grad, this raises a ``RuntimeError`` that names
+    the kernel instead of returning an output with no gradient. It looks
+    at the inputs, not the device, so the plain version on the CPU
+    refuses as the kernel does.
+    """
+    if torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad for x in inputs):
+        raise RuntimeError(
+            f"{kernel} has no backward: the reference's Pallas kernel "
+            f"refuses reverse mode, and so does its port. Differentiate "
+            f"through another impl (spar_gw: cost_impl='materialized' or "
+            f"'jnp'; grid_gw: use_kernel=False), or call it under "
+            f"torch.no_grad()")
+
+
 def _env_bytes(name: str, default: int) -> int:
     raw = os.environ.get(name)
     if not raw:

@@ -12,7 +12,9 @@ order, so runs are bit-identical.
 A wrapper given CUDA tensors launches the kernel on the current stream or
 raises; given CPU tensors it runs the plain PyTorch version
 (:func:`ref.gw_cost_ref`). ``LAUNCHES`` counts kernel launches (plain runs
-do not count).
+do not count). Neither has a gradient: with grad enabled and an input
+requiring grad the wrapper raises, as ``jax.grad`` through the reference's
+kernel does.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.cuda_lib import LOSS_CODES, check_tensor, raise_on
+from repro_torch.kernels.dispatch import refuse_grad
 from repro_torch.kernels.gw_cost.ref import gw_cost_ref
 
 LAUNCHES = {"gw_cost": 0}
@@ -75,10 +78,12 @@ gw_cost_plain = gw_cost_ref
 def gw_cost_cuda(A, B, T, loss: str = "l1", threads: int = 256):
     """C (K, M) float32 from A (K, L), B (M, P), T (L, P), all float32 and
     contiguous. CUDA tensors launch the kernel; CPU tensors take
-    :func:`gw_cost_plain`.
+    :func:`gw_cost_plain`. Refuses a gradient, on either device, as the
+    reference's Pallas kernel does (``dispatch.refuse_grad``).
     """
     if loss not in LOSS_CODES:
         raise ValueError(f"unknown ground loss {loss!r}")
+    refuse_grad("gw_cost (K3)", A, B, T)
     if not A.is_cuda:
         return gw_cost_plain(A, B, T, loss)
     K, Ld = A.shape

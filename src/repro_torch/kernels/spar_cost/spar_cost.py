@@ -21,6 +21,15 @@ compute the affine form ``out = L-matvec(t) + off`` with fp32 accumulation
 A wrapper given CUDA tensors launches its kernel on the current stream or
 raises; given CPU tensors it runs the plain PyTorch version beside it.
 ``LAUNCHES`` counts kernel launches per wrapper (plain runs do not count).
+
+Gradients. The matvec is differentiable: with grad enabled and an input
+that requires grad, :func:`spar_matvec_cuda` goes through
+:class:`SparMatvec`, whose forward is the kernel (or the plain version on
+CPU tensors) and whose backward is plain torch (dLmat = g ⊗ t,
+dt = Lmatᵀ g, doff = g), the gradient the reference's CPU route
+(``Lmat @ t``) has. The reference has no backward for any Pallas kernel,
+so no backward kernel is written. The gather-fused kernel refuses a
+gradient as the reference's does (``dispatch.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ import torch
 
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.cuda_lib import LOSS_CODES, check_tensor, raise_on
+from repro_torch.kernels.dispatch import refuse_grad
 from repro_torch.kernels.spar_cost.ref import spar_cost_ref
 
 LAUNCHES = {"spar_matvec": 0, "spar_cost_fused": 0}
@@ -87,8 +97,38 @@ def spar_matvec_cuda(Lmat, t, off, threads: int = 256):
     """out = Lmat @ t + off, (s,) float32.
 
     Lmat (s, s), t and off (s,), all float32 and contiguous. CUDA tensors
-    launch the kernel; CPU tensors take :func:`spar_matvec_plain`.
+    launch the kernel; CPU tensors take :func:`spar_matvec_plain`. With
+    grad enabled and an input requiring grad the call goes through
+    :class:`SparMatvec` and its output carries the gradient.
     """
+    if torch.is_grad_enabled() and (Lmat.requires_grad or t.requires_grad
+                                    or off.requires_grad):
+        return SparMatvec.apply(Lmat, t, off, threads)
+    return _spar_matvec_forward(Lmat, t, off, threads)
+
+
+class SparMatvec(torch.autograd.Function):
+    """out = Lmat @ t + off through the matvec kernel, with a plain torch
+    backward: dLmat = g ⊗ t, dt = Lmatᵀ g, doff = g, each computed only
+    for the inputs that need it (the same products autograd takes
+    through :func:`spar_matvec_plain`)."""
+
+    @staticmethod
+    def forward(ctx, Lmat, t, off, threads):
+        ctx.save_for_backward(Lmat if ctx.needs_input_grad[1] else None,
+                              t if ctx.needs_input_grad[0] else None)
+        return _spar_matvec_forward(Lmat, t, off, threads)
+
+    @staticmethod
+    def backward(ctx, g):
+        Lmat, t = ctx.saved_tensors
+        need_L, need_t, need_off, _ = ctx.needs_input_grad
+        return (torch.outer(g, t) if need_L else None,
+                Lmat.t().mv(g) if need_t else None,
+                g if need_off else None, None)
+
+
+def _spar_matvec_forward(Lmat, t, off, threads: int):
     if not Lmat.is_cuda:
         return spar_matvec_plain(Lmat, t, off)
     s = Lmat.shape[0]
@@ -130,6 +170,7 @@ def spar_cost_cuda(Cx, Cy, rows, cols, t, off, loss: str = "l2",
     """
     if loss not in LOSS_CODES:
         raise ValueError(f"unknown ground loss {loss!r}")
+    refuse_grad("spar_cost_fused (K2)", Cx, Cy, t, off)
     if not Cx.is_cuda:
         return spar_cost_plain(Cx, Cy, rows, cols, t, off, loss)
     m, n, s = Cx.shape[0], Cy.shape[0], rows.shape[0]
@@ -165,7 +206,9 @@ def launch_fused(Cx, Cy, rows, cols, t, off, loss: str, threads: int,
     index range included), or its plain version on CPU tensors.
 
     ``perm`` (int32, optional): output k of the support as given goes to
-    ``perm[k]``, with ``off[perm[k]]`` added."""
+    ``perm[k]``, with ``off[perm[k]]`` added. Refuses a gradient
+    (``dispatch.refuse_grad``)."""
+    refuse_grad("spar_cost_fused (K2)", Cx, Cy, t, off)
     if not Cx.is_cuda:
         return spar_cost_plain(Cx, Cy, rows, cols, t, off, loss, perm=perm)
     s = rows.shape[0]

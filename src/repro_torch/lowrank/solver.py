@@ -105,7 +105,7 @@ class LowRankGWSolver:
     max_rescues, rescue_factor — rescue budget on detected divergence;
                     the escalation divides γ (step-size halving)
     fault         — a ``FaultSpec`` the loop injects into (Q, R, g)
-    trace         — raises until convergence traces are ported (item 14)
+    trace         — fill ``GWOutput.trace`` (objective: ``gw_lr_value``)
     """
     rank: int = 0
     cost_rank: int = 0
@@ -175,11 +175,16 @@ class LowRankGWSolver:
             mu, nu = LowRankCoupling(*state).marginals()
             return torch.sum(torch.abs(mu - a)) + torch.sum(torch.abs(nu - b))
 
+        def obj_fn(state):
+            return gw_lr_value(*state, fx, fy)
+
         (Q, R, g), errors, n_iters, converged, status, trace = pga_loop(
             step, err_fn, state0, self.outer_iters, self.tol,
             scaled_step=True, max_rescues=self.max_rescues,
             rescue_factor=self.rescue_factor, fault=self.fault,
-            trace=self.trace)
+            trace=self.trace, obj_fn=obj_fn)
+        # the live factors of both costs (points or sketches): the
+        # envelope gradient flows through them
         value = gw_lr_value(Q, R, g, fx, fy)
         return GWOutput(value=value, coupling=LowRankCoupling(Q, R, g),
                         errors=errors, converged=converged, n_iters=n_iters,

@@ -26,7 +26,7 @@ import torch
 from repro_torch.api.output import QuantizedCoupling
 from repro_torch.core import ground_cost as gc
 from repro_torch.core.sinkhorn import sinkhorn_log_batched
-from repro_torch.core.utils import div_floor, flush_subnormal
+from repro_torch.core.utils import div_floor, flush_subnormal, scalar
 from repro_torch.multiscale.anchors import (
     AnchorAssignment,
     member_table,
@@ -85,7 +85,7 @@ def block_refine(problem, ax: AnchorAssignment, ay: AnchorAssignment, Tc,
     Cx, a = problem.geom_x.cost_matrix, problem.geom_x.weights
     Cy, b = problem.geom_y.cost_matrix, problem.geom_y.weights
     fused = problem.is_fused
-    alpha = float(problem.fused_penalty) if fused else 1.0
+    alpha = scalar(problem.fused_penalty) if fused else 1.0
 
     tx, mask_x, u, dx = _member_side(Cx, a, ax, cap_x)
     ty, mask_y, v, dy = _member_side(Cy, b, ay, cap_y)

@@ -36,6 +36,7 @@ from repro_torch.api.solvers import (
     register_solver,
 )
 from repro_torch.core.gw import gw_objective
+from repro_torch.core.utils import scalar
 from repro_torch.health.loop import tree_finite
 from repro_torch.health.status import CONVERGED, DIVERGED, MAXITER, SolveStatus
 from repro_torch.kernels.spar_cost.ops import make_spar_cost_fn
@@ -150,8 +151,8 @@ class QuantizedGWSolver:
                     coarse solve has the base solver's own)
     fault         — a ``FaultSpec`` for the polish loop; to poison the
                     coarse solve, set it on the ``base`` config instead
-    trace         — forwarded to the base solver, whose loop raises until
-                    convergence traces are ported (ROADMAP queue 1, item 14)
+    trace         — forwarded to the base solver; ``GWOutput.trace`` is the
+                    coarse solve's trace
     """
     k_x: int = 0
     k_y: int = 0
@@ -311,7 +312,7 @@ class QuantizedGWSolver:
                                     problem.geom_y.cost_matrix,
                                     rows, cols, problem.loss)
         fused = problem.is_fused
-        alpha = float(problem.fused_penalty) if fused else 1.0
+        alpha = scalar(problem.fused_penalty) if fused else 1.0
         lin = problem.linear_cost_at(rows, cols) if fused else 0.0
         # padded/underflowed entries enter at 1e-30: the proximal kernel
         # carries log T̃, so they stay ~0 relative to the live support
@@ -331,6 +332,7 @@ class QuantizedGWSolver:
         T = torch.where(in_support, T, 0.0)
         quad = torch.sum(T * cost_fn(T))      # exact ⟨L⊗T, T⟩ on the support
         if fused:
+            alpha = problem.fused_penalty     # live: α may carry a gradient
             value = alpha * quad + (1.0 - alpha) * torch.sum(lin * T)
         else:
             value = quad
@@ -350,7 +352,7 @@ class QuantizedGWSolver:
         if problem.is_fused:
             # the f-terms enter the fused objective α-weighted; the
             # explicit-M linear term aggregates exactly
-            correction = float(problem.fused_penalty) * correction
+            correction = problem.fused_penalty * correction
         return coarse.value + correction
 
     def _value(self, problem, coarse_problem, coarse, coupling, m: int,
@@ -376,7 +378,7 @@ class QuantizedGWSolver:
         quad = gw_objective(problem.geom_x.cost_matrix,
                             problem.geom_y.cost_matrix, T, problem.loss)
         if problem.is_fused:
-            alpha = float(problem.fused_penalty)
+            alpha = problem.fused_penalty
             return alpha * quad + (1.0 - alpha) * torch.sum(
                 problem.linear_cost_dense() * T)
         return quad

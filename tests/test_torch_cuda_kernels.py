@@ -109,6 +109,39 @@ def test_matvec_matches_plain(dev, s, threads):
     assert torch.all((got - want).abs() <= RTOL_SCALE * scale)
 
 
+@pytest.mark.parametrize("s", [31, 1003])
+def test_matvec_function_backward_matches_autograd_through_plain(dev, s):
+    """K1's autograd.Function: dLmat = g ⊗ t and doff = g exactly, and dt
+    = Lmatᵀ g within the kernel bound, against autograd through the plain
+    version; the forward launches the kernel once, the backward none."""
+    ins = [_rand((s, s), 3, dev), _rand(s, 4, dev) - 0.5,
+           _rand(s, 5, dev, lo=-3.0)]
+    w = _rand(s, 6, dev) - 0.5
+    got = [x.clone().requires_grad_(True) for x in ins]
+    want = [x.clone().requires_grad_(True) for x in ins]
+    spar_cost.reset_launch_counts()
+    out = spar_cost.spar_matvec_cuda(*got)
+    g_k = torch.autograd.grad((out * w).sum(), got)
+    assert spar_cost.LAUNCHES["spar_matvec"] == 1
+    g_p = torch.autograd.grad(
+        (spar_cost.spar_matvec_plain(*want) * w).sum(), want)
+    assert torch.equal(g_k[0], g_p[0]) and torch.equal(g_k[2], g_p[2])
+    scale = ins[0].abs().t() @ w.abs()
+    assert torch.all((g_k[1] - g_p[1]).abs() <= RTOL_SCALE * scale)
+
+
+def test_fused_and_gw_cost_kernels_refuse_a_gradient(dev):
+    A = _rand((40, 30), 7, dev, lo=0.05).requires_grad_(True)
+    B, T = _rand((20, 25), 8, dev, lo=0.05), _rand((30, 25), 9, dev)
+    with pytest.raises(RuntimeError, match="gw_cost"):
+        gw_cost.gw_cost_cuda(A, B, T, loss="l1")
+    rows, cols = _support(40, 20, 64, 10, dev)
+    Cx = _rand((40, 40), 11, dev).requires_grad_(True)
+    with pytest.raises(RuntimeError, match="spar_cost_fused"):
+        spar_cost.spar_cost_cuda(Cx, _rand((20, 20), 12, dev), rows, cols,
+                                 _rand(64, 13, dev), _rand(64, 14, dev))
+
+
 @pytest.mark.parametrize("loss", ["l1", "l2", "kl"])
 @pytest.mark.parametrize("m,n,s,order", [
     (777, 555, 1, "given"), (777, 555, 33, "given"),

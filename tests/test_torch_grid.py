@@ -189,6 +189,8 @@ def test_grid_input_checks_like_reference():
     with pytest.raises(ValueError, match="out of range"):
         repro_torch.solve(p, GridGWSolver(s_r=2, s_c=2), device="cpu",
                           support=([0, 1], [0, 48]))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        repro_torch.solve(p, GridGWSolver(s_r=4, s_c=4, trace=True), gen,
-                          device="cpu")
+    # trace=True records every iteration (it raised until the traces
+    # were ported)
+    traced = repro_torch.solve(p, GridGWSolver(s_r=4, s_c=4, trace=True),
+                               gen, device="cpu")
+    assert repro_torch.obs.n_valid(traced.trace) == traced.n_iters

@@ -18,11 +18,15 @@ from repro_torch.kernels import dispatch
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
-# the multiscale and health modules: scanned like every other file, and
-# required to be there
+# the multiscale, health, diff, optim and obs modules: scanned like every
+# other file, and required to be there
 NEW_MODULES = ("multiscale/anchors.py", "multiscale/compress.py",
                "multiscale/refine.py", "multiscale/solver.py",
-               "health/faults.py", "health/fallback.py")
+               "health/faults.py", "health/fallback.py",
+               "diff/__init__.py", "diff/fixed_point.py", "diff/losses.py",
+               "diff/barycenter.py", "diff/unrolled.py", "optim/adamw.py",
+               "obs/__init__.py", "obs/registry.py", "obs/span.py",
+               "obs/trace.py", "obs/report.py", "obs/http.py")
 
 
 def _port_files():
@@ -107,3 +111,27 @@ def test_new_routes_raise_without_a_card(monkeypatch, route):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         repro_torch.solve(p, solver,
                           generator=torch.Generator().manual_seed(0))
+
+
+def test_diff_obs_and_optim_import_alone_with_the_reference_names():
+    """Each new package imports in a fresh process without JAX, and
+    exposes the reference's public names (``repro_torch.diff`` adds
+    ``unrolled_value``)."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys\n"
+        "import repro_torch.diff, repro_torch.obs, repro_torch.optim\n"
+        "from repro_torch.diff import (envelope_loop, locally_constant,\n"
+        "    gw_loss, fgw_loss, quadratic_loss, gw_barycenter,\n"
+        "    BarycenterResult, unrolled_value)\n"
+        "from repro_torch.optim.adamw import init, update\n"
+        "assert 'jax' not in sys.modules and 'repro' not in sys.modules\n"
+        "print(sorted(repro_torch.obs.__all__))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PYTHONPATH": str(ROOT / "src")},
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    import repro.obs
+    assert out.stdout.strip() == str(sorted(repro.obs.__all__))

@@ -472,9 +472,12 @@ def test_selected_and_validated_like_reference():
                           device="cpu")
     with pytest.raises(ValueError, match="generator"):
         repro_torch.solve(pp, QuantizedGWSolver(k_x=8, k_y=8), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        repro_torch.solve(pp, QuantizedGWSolver(k_x=8, k_y=8, trace=True),
-                          gen, device="cpu")
+    # trace=True returns the coarse solve's trace (it raised until the
+    # traces were ported)
+    traced = repro_torch.solve(pp, QuantizedGWSolver(k_x=8, k_y=8,
+                                                     trace=True),
+                               gen, device="cpu")
+    assert repro_torch.obs.n_valid(traced.trace) == traced.n_iters
 
 
 def test_own_draws_are_reproducible():

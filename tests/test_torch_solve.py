@@ -235,9 +235,11 @@ def test_unported_paths_raise():
         gen, device="cpu")
     assert faulted.status.describe() == "DIVERGED"
     assert faulted.status.fail_iter == 1
-    with pytest.raises(NotImplementedError, match="item 14"):
-        repro_torch.solve(p, SparGWSolver(s=100, trace=True), gen,
-                          device="cpu")
+    # trace=True records every iteration (it raised until the traces
+    # were ported)
+    traced = repro_torch.solve(p, SparGWSolver(s=100, trace=True), gen,
+                               device="cpu")
+    assert repro_torch.obs.n_valid(traced.trace) == traced.n_iters
     dense = repro_torch.solve(p, "dense_gw", device="cpu")   # no generator
     assert dense.status.is_healthy and np.isfinite(float(dense.value))
     assert tuple(dense.coupling.shape) == (48, 48)
