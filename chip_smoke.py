@@ -75,6 +75,22 @@ Phases; any failure raises and exits non-zero with no result line:
    cut to 3 steps, quantized polished at n = 150) must record n_iters
    iterations, ``repro_solves_total`` count them, and ``obs.report()``
    of that run is printed;
+4g. drive ``repro_torch.serve``: benchmarks/bench_serve.py's full
+   catalog stream (64 dense_gw requests, 10 recurring queries of 12-60
+   points against one 32-point reference) through ``GWServer(max_batch=8,
+   max_wait_s=0.02)``, a warm pass then a measured one (the cache hit rate
+   must be 1.0), beside the same stream as a sequential
+   ``repro_torch.solve`` loop; every served value within 1e-4 of its solo
+   solve of the padded problem; then 16 spar_gw requests (n in 400-512
+   against one 512-point reference, s = 8192, a generator seeded per
+   request) in two flushes of 8 lanes: K1 must launch 21 times a flush,
+   each lane agree with its solo solve on the same generator state; one
+   flush and the 8 solo solves it replaces timed, the flush and one solo
+   solve profiled; K1's lane
+   launch at (8, 8192) bitwise against 8 single-lane launches; width-1
+   lane bits against width 2 and the solo solve (printed); a flush of 4
+   fused dense requests with a persistent NaN in one: it fails and falls
+   back, its mates come back healthy;
 5. drive the grid main path: ``repro_torch.solve`` with
    ``GridGWSolver.default_config(2048)`` (s_r = s_c = 181) and
    ``use_kernel=True`` on the same Moon pair with the l1 loss; the
@@ -104,7 +120,9 @@ Phases; any failure raises and exits non-zero with no result line:
    and peak memory;
 8. time every kernel at its path's shapes against its plain version,
    its bound and, where one exists, one library call (K5 also at
-   llama3-8b's attention shape); print each Sinkhorn route's CTAs,
+   llama3-8b's attention shape; K1's lane launch at (8, 8192) also
+   against the 8 single-lane launches it replaces, with torch.baddbmm as
+   the library call); print each Sinkhorn route's CTAs,
    shared memory a CTA and barriers a call;
 9. trace one grid solve, one spar solve (gather-fused), one unbalanced
    spar solve ("auto"), the low-rank solve cut to 3 outer steps and the
@@ -115,7 +133,8 @@ Phases; any failure raises and exits non-zero with no result line:
    phase's wall time.
 
 The line before the last is the kernel JSON (K1's row also counts its
-launches on phase 4f's ``gw_loss``); the last line is
+launches on phase 4f's ``gw_loss``; its lane launch's row, on phase 4g's
+spar lanes); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
 package ``repro``.
 """
@@ -172,6 +191,20 @@ CONVERGED_ERR, CONVERGED_DELTA = 1e-4, 1e-5
 N_ENVELOPE = 10        # the converged cases (tests/test_torch_envelope.py)
 N_UNROLLED_SPAR = 200  # benchmarks/bench_diff.py --quick: s = 8n, 60 x 120
 BARY_STEPS = 10
+
+# phase 4g, serve: benchmarks/bench_serve.py's full catalog stream (64
+# requests, 10 recurring queries against one 32-point reference), then
+# spar lanes at the top default bucket (16 requests against one 512-point
+# reference, s = 16·512, two flushes of 8 lanes)
+SERVE_CATALOG_SIZES = (12, 14, 18, 22, 26, 28, 30, 38, 44, 60)
+SERVE_CATALOG_REQUESTS, SERVE_CATALOG_QUERIES = 64, 10
+SERVE_SPAR_SIZES = (400, 448, 480, 512)
+SERVE_SPAR_N, SERVE_SPAR_REQUESTS, SERVE_LANES = 512, 16, 8
+SERVE_SPAR_S = 16 * SERVE_SPAR_N
+# a served dense value against its solo solve of the padded problem on the
+# card: the same fp32 algorithm, batched (cuBLAS bmm, batched reductions)
+# against single calls
+SERVE_VALUE_RTOL = 1e-4
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32
 # (non-tensor-core) flop/s and dense bf16 tensor-core flop/s. The GW
@@ -385,6 +418,57 @@ def cloud_problem(repro_torch, n: int, loss: str = "l2"):
         repro_torch.Geometry(cloud_dists(1, n), w), loss=loss)
 
 
+def serve_geometry(repro_torch, n: int, seed: int):
+    """benchmarks/bench_serve.py's geometry: n standard normal points in
+    2-D, their Euclidean distances, uniform weights (on the CPU)."""
+    pts = np.random.default_rng(seed).standard_normal((n, 2))
+    C = np.sqrt(((pts[:, None] - pts[None]) ** 2).sum(-1)).astype(np.float32)
+    return repro_torch.Geometry(C, np.full(n, 1.0 / n, np.float32))
+
+
+def serve_catalog(repro_torch) -> list:
+    """bench_serve.py's catalog stream: recurring queries (the same
+    Geometry objects) against one shared 32-point reference."""
+    ref = serve_geometry(repro_torch, 32, 999)
+    queries = [serve_geometry(repro_torch, SERVE_CATALOG_SIZES[
+        i % len(SERVE_CATALOG_SIZES)], 100 + i)
+        for i in range(SERVE_CATALOG_QUERIES)]
+    return [repro_torch.QuadraticProblem(queries[i % len(queries)], ref)
+            for i in range(SERVE_CATALOG_REQUESTS)]
+
+
+def serve_spar_requests(repro_torch) -> list:
+    """Queries of n in SERVE_SPAR_SIZES against one 512-point reference."""
+    ref = serve_geometry(repro_torch, SERVE_SPAR_N, 999)
+    return [repro_torch.QuadraticProblem(serve_geometry(
+        repro_torch, SERVE_SPAR_SIZES[k % len(SERVE_SPAR_SIZES)], 200 + k),
+        ref) for k in range(SERVE_SPAR_REQUESTS)]
+
+
+def serve_fused_requests(repro_torch) -> list:
+    """Four fused requests (n = 14 and 16, a random linear term, α = 0.5)
+    for the poisoned flush."""
+    out = []
+    for k in range(4):
+        n = 14 + 2 * (k % 2)
+        M = np.random.default_rng(k).random((n, n)).astype(np.float32)
+        out.append(repro_torch.QuadraticProblem(
+            serve_geometry(repro_torch, n, 300 + k),
+            serve_geometry(repro_torch, n, 400 + k), M=M, fused_penalty=0.5))
+    return out
+
+
+def k1_lanes_inputs(torch, dev):
+    """K1's lane launch inputs at (SERVE_LANES, SERVE_SPAR_S): uniform
+    matrices and t, off from a seeded generator on the card."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    B, s = SERVE_LANES, SERVE_SPAR_S
+    L = torch.rand(B, s, s, generator=g, device=dev)
+    t = torch.rand(B, s, generator=g, device=dev) - 0.5
+    off = torch.rand(B, s, generator=g, device=dev) - 3.0
+    return L, t, off
+
+
 def profile_solve(torch, fn, top: int = 8) -> dict:
     """Trace ``fn()`` with torch.profiler: wall time, the summed device
     time of its CUDA kernels, the device's idle share, the top kernels.
@@ -506,6 +590,9 @@ def main(parent: Path | None = None) -> int:
     from repro_torch import diff, obs
     from repro_torch.models import Model
     from repro_torch.models import ssm as ssm_mod
+    from repro_torch.serve import GWServer, ServeConfig, pad_problem
+    from repro_torch.serve.batching import stack_items
+    from repro_torch.serve.lanes import run_lanes
 
     dev = torch.device("cuda")
 
@@ -1358,6 +1445,202 @@ def main(parent: Path | None = None) -> int:
     del bary, out
     torch.cuda.empty_cache()
 
+    # -- 4g. serve: GWServer, lane-batched dense_gw and spar_gw -----------
+    stamps.append(("4g", time.perf_counter()))
+
+    # the dense catalog stream (benchmarks/bench_serve.py's full stream):
+    # a warm pass, then reset_stats() and the measured pass, then the same
+    # stream as a sequential repro_torch.solve loop
+    catalog = serve_catalog(repro_torch)
+    d_solver = solvers.get_solver("dense_gw").default_config(48)
+    srv = GWServer(ServeConfig(max_batch=8, max_wait_s=0.02))
+    try:
+        srv.results([srv.submit(p, d_solver) for p in catalog])
+        srv.reset_stats()
+        t0 = time.perf_counter()
+        served = srv.results([srv.submit(p, d_solver) for p in catalog])
+        served_wall = time.perf_counter() - t0
+        served_stats = srv.stats()
+    finally:
+        srv.close()
+    if served_stats["cache_hit_rate"] != 1.0 or any(
+            r.failed or not math.isfinite(r.value) for r in served):
+        raise AssertionError(f"catalog stream: {served_stats}")
+    seq_lat = []
+    t0 = time.perf_counter()
+    for p in catalog:
+        t1 = time.perf_counter()
+        repro_torch.solve(p, d_solver).value.item()
+        seq_lat.append(time.perf_counter() - t1)
+    seq_wall = time.perf_counter() - t0
+    # every served value against its solo solve of the padded problem
+    solo_values, worst = {}, 0.0
+    for p, r in zip(catalog, served):
+        key = id(p.geom_x)
+        if key not in solo_values:
+            solo_values[key] = float(d_solver.run(pad_problem(
+                p, *r.padded_shape).to(dev)).value)
+        rel = abs(r.value - solo_values[key]) / abs(solo_values[key])
+        worst = max(worst, rel)
+    if worst > SERVE_VALUE_RTOL:
+        raise AssertionError(f"catalog stream: a served value is {worst:.3g}"
+                             f" off its solo solve")
+    catalog_row = {
+        "requests": len(catalog), "solver": "dense_gw default_config(48)",
+        "served": {k: served_stats[k] for k in (
+            "throughput_rps", "latency_p50_ms", "latency_p99_ms",
+            "n_batches", "mean_batch_lanes", "filler_lane_frac",
+            "cache_hit_rate")},
+        "served_wall_s": served_wall,
+        "sequential": {"throughput_rps": len(catalog) / seq_wall,
+                       "latency_p50_ms": 1e3 * float(np.percentile(seq_lat,
+                                                                   50)),
+                       "latency_p99_ms": 1e3 * float(np.percentile(seq_lat,
+                                                                   99)),
+                       "wall_s": seq_wall},
+        "speedup_vs_sequential": seq_wall / served_wall,
+        "max_rel_err_vs_solo": worst}
+
+    # spar lanes at the top default bucket: 16 requests against one
+    # 512-point reference, s = 16·512, two flushes of 8 lanes; K1 once a
+    # step (and once for the value) a flush
+    spar_reqs = serve_spar_requests(repro_torch)
+    s_solver = SparGWSolver(s=SERVE_SPAR_S)
+    seeds = range(len(spar_reqs))
+    spar_cost.reset_launch_counts()
+    srv = GWServer(ServeConfig(max_batch=SERVE_LANES, max_wait_s=60.0))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spar_served = srv.results([srv.submit(
+            p, s_solver, generator=torch.Generator(dev).manual_seed(k))
+            for k, p in zip(seeds, spar_reqs)])
+        spar_wall = time.perf_counter() - t0
+        spar_stats = srv.stats()
+    finally:
+        srv.close()
+    spar_launches = dict(spar_cost.LAUNCHES)
+    n_flush = len(spar_reqs) // SERVE_LANES
+    if spar_stats["n_batches"] != n_flush or spar_launches != {
+            "spar_matvec": n_flush * (s_solver.outer_iters + 1),
+            "spar_cost_fused": 0}:
+        raise AssertionError(f"spar lanes: {spar_stats['n_batches']} "
+                             f"flushes, launches {spar_launches}")
+    # each lane against its solo solve from the same generator state; the
+    # solo solves of the first flush's lanes are the 8 it replaces
+    padded_spar = [pad_problem(p, SERVE_SPAR_N, SERVE_SPAR_N).to(dev)
+                   for p in spar_reqs]
+
+    def solo_spar(k):
+        return s_solver.run(padded_spar[k], generator=torch.Generator(
+            dev).manual_seed(k))
+
+    worst, solo_walls = 0.0, []
+    for k, r in zip(seeds, spar_served):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solo = solo_spar(k)
+        value = float(solo.value)
+        solo_walls.append(time.perf_counter() - t0)
+        if not (torch.equal(solo.coupling.rows, r.output.coupling.rows)
+                and solo.status.code == r.output.status.code):
+            raise AssertionError(f"spar lane {k}: support or status differs "
+                                 f"from its solo solve")
+        worst = max(worst, abs(r.value - value) / abs(value))
+    if worst > IMPL_VALUE_RTOL:
+        raise AssertionError(f"spar lanes: a lane is {worst:.3g} off its "
+                             f"solo solve")
+
+    def one_flush():
+        srv = GWServer(ServeConfig(max_batch=SERVE_LANES, max_wait_s=60.0))
+        try:
+            return [r.value for r in srv.results([srv.submit(
+                p, s_solver, generator=torch.Generator(dev).manual_seed(k))
+                for k, p in zip(seeds, spar_reqs[:SERVE_LANES])])]
+        finally:
+            srv.close()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_flush()
+    flush_wall = time.perf_counter() - t0
+    # the profiler's processing costs ~0.3 ms an event: one flush (~70 000
+    # launches) and one of the solo solves it replaces (~69 000)
+    spar_row = {
+        "requests": len(spar_reqs), "n": SERVE_SPAR_SIZES,
+        "bucket": [SERVE_SPAR_N, SERVE_SPAR_N], "s": SERVE_SPAR_S,
+        "lanes": SERVE_LANES, "flushes": spar_stats["n_batches"],
+        "launches": spar_launches, "wall_s_16": spar_wall,
+        "max_rel_err_vs_solo": worst, "flush_wall_s": flush_wall,
+        "solo_8_wall_s": sum(solo_walls[:SERVE_LANES]),
+        "solo_wall_s": solo_walls,
+        "profile_flush": profile_solve(torch, one_flush),
+        "profile_1_solo": profile_solve(
+            torch, lambda: solo_spar(0).value.item())}
+
+    # K1's lane launch against 8 single-lane launches at (8, 8192):
+    # bitwise (phase 8 times it)
+    Ll, tl, offl = k1_lanes_inputs(torch, dev)
+    lanes_out = spar_cost.spar_matvec_cuda(Ll, tl, offl)
+    singles = torch.stack([spar_cost.spar_matvec_cuda(Ll[b], tl[b], offl[b])
+                           for b in range(SERVE_LANES)])
+    if not torch.equal(lanes_out, singles):
+        raise AssertionError("K1's lane launch differs from single-lane "
+                             "launches")
+    del Ll, tl, offl, lanes_out, singles
+
+    # width 1 against width 2 and the solo solve on the card (the CPU's
+    # MIN_LANES finding; printed, not held: cuBLAS may pick other kernels)
+    w_prob = pad_problem(catalog[0], *served[0].padded_shape).to(dev)
+    w_items = [(w_prob, d_solver, None), (pad_problem(
+        catalog[1], *served[0].padded_shape).to(dev), d_solver, None)]
+    w1 = run_lanes(stack_items(w_items[:1]))[0]
+    w2 = run_lanes(stack_items(w_items))[0]
+    solo = d_solver.run(w_prob)
+    width_bits = {"width1_eq_width2": bool(torch.equal(w1.coupling,
+                                                       w2.coupling)),
+                  "width1_eq_solo": bool(torch.equal(w1.coupling,
+                                                     solo.coupling)),
+                  "width2_eq_solo": bool(torch.equal(w2.coupling,
+                                                     solo.coupling))}
+
+    # a poisoned flush: a persistent NaN among 3 clean mates (fused dense
+    # requests, so the ladder is quantized -> spar); the poisoned request
+    # fails and falls back, the mates come back healthy
+    persistent = dataclasses.replace(d_solver, max_rescues=0, fault=FaultSpec(
+        at_iter=1, kind="nan", persistent=True))
+    clean = dataclasses.replace(persistent, fault=dataclasses.replace(
+        persistent.fault, at_iter=-1))
+    fused_reqs = serve_fused_requests(repro_torch)
+    srv = GWServer(ServeConfig(max_batch=4, max_wait_s=60.0))
+    try:
+        t0 = time.perf_counter()
+        poisoned = srv.results([srv.submit(
+            p, persistent if k == 1 else clean,
+            generator=torch.Generator(dev).manual_seed(k))
+            for k, p in enumerate(fused_reqs)])
+        poisoned_wall = time.perf_counter() - t0
+        p_stats = srv.stats()
+    finally:
+        srv.close()
+    bad = poisoned[1]
+    if not (bad.failed and bad.fell_back and bad.status.is_healthy
+            and math.isfinite(bad.value) and p_stats["n_batches"] == 1
+            and all(not r.failed and r.status.is_healthy
+                    for k, r in enumerate(poisoned) if k != 1)):
+        outcomes = [(r.status_name, r.failed, r.fell_back) for r in poisoned]
+        raise AssertionError(f"poisoned flush: {outcomes}")
+    print(json.dumps({"serve_path": {
+        "catalog": catalog_row, "spar_lanes": spar_row,
+        "k1_lanes_bitwise_vs_single": True, "lane_bits_on_card": width_bits,
+        "poisoned_flush": {
+            "statuses": [r.status_name for r in poisoned],
+            "failed": [r.failed for r in poisoned],
+            "fell_back": [r.fell_back for r in poisoned],
+            "wall_s": poisoned_wall}}}))
+    del spar_served, padded_spar
+    torch.cuda.empty_cache()
+
     # -- 5. the grid main path ---------------------------------------------
     stamps.append(("5", time.perf_counter()))
     grid_problem = repro_torch.QuadraticProblem(
@@ -1666,6 +1949,45 @@ def main(parent: Path | None = None) -> int:
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": lib_ms})
     del Lmat
+    torch.cuda.empty_cache()
+
+    # K1's lane launch at phase 4g's shape: 8 lanes of s = 8192 in one
+    # launch, against its plain version (a matvec a lane), the 8
+    # single-lane launches it replaces and one torch.baddbmm
+    Ll, tl, offl = k1_lanes_inputs(torch, dev)
+    B_l, s_l = SERVE_LANES, SERVE_SPAR_S
+    scale = torch.stack([Ll[b].abs() @ tl[b].abs() for b in range(B_l)]) \
+        + offl.abs()
+    err = check(torch, "spar_matvec lanes (8, 8192)",
+                spar_cost.spar_matvec_cuda(Ll, tl, offl),
+                spar_cost.spar_matvec_plain(Ll, tl, offl), scale)
+    del scale
+    # in turns (lanes, singles, singles, lanes): two readings apart by
+    # 20 % came from two calls of one commit
+    launch = {"lanes": lambda: spar_cost.spar_matvec_cuda(Ll, tl, offl),
+              "single": lambda: [spar_cost.spar_matvec_cuda(
+                  Ll[b], tl[b], offl[b]) for b in range(B_l)]}
+    turns = {"lanes": [], "single": []}
+    for name in ("lanes", "single", "single", "lanes"):
+        turns[name].append(time_ms(torch, launch[name], 50))
+    ms, single_ms = (sum(turns[k]) / 2 for k in ("lanes", "single"))
+    plain_ms = time_ms(torch, lambda: spar_cost.spar_matvec_plain(
+        Ll, tl, offl), 20)
+    lib_ms = time_ms(torch, lambda: torch.baddbmm(
+        offl[:, :, None], Ll, tl[:, :, None]), 20)
+    bound_ms, bound_by = bound(4 * B_l * (s_l * s_l + 3 * s_l),
+                               2 * B_l * s_l * s_l)
+    kernels.append({
+        "name": "spar_matvec_lanes", "route": "cuda",
+        "source": "src/repro_torch/csrc/spar_matvec.cu",
+        "replaces": "src/repro/kernels/spar_cost/spar_cost.py:132",
+        "shape": f"{B_l} lanes, s={s_l}",
+        "launches": spar_launches["spar_matvec"],
+        "max_abs_err": err, "ms": ms, "single_lane_launches_ms": single_ms,
+        "turns_ms": turns,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": lib_ms})
+    del Ll, tl, offl
     torch.cuda.empty_cache()
 
     # as the main path calls it: the support sorted by row once, t in the

@@ -8,9 +8,11 @@ Arrays are stored as float32 tensors, on the device they were given on
 """
 from __future__ import annotations
 
+import hashlib
 from dataclasses import InitVar, dataclass, fields
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 
@@ -115,3 +117,46 @@ class Geometry:
         sq = torch.sum(x * x, dim=-1)
         D = sq[:, None] + sq[None, :] - 2.0 * (x @ x.T)
         return torch.clamp_min(D, 0.0)
+
+    def content_hash(self) -> str:
+        """Stable content digest of the geometry — the serving cache key.
+
+        The same sha256 hex digest as the reference's
+        ``repro.Geometry.content_hash`` for the same arrays: each defining
+        array is fed as its tag (``cost``, ``pts``, ``w``, ``feat``), its
+        numpy dtype name and shape, then its C-contiguous bytes (``none``
+        for an absent one). A point-cloud geometry is hashed through its
+        points and never materializes its n x n cost.
+
+        Memoized on the instance. Raises on a tensor that requires grad:
+        a cache key is never taken of a value the caller differentiates
+        (the reference refuses tracers for the same reason).
+        """
+        cached = getattr(self, "_content_hash", None)
+        if cached is not None:
+            return cached
+        arrays = (self.cost, self.weights, self.features, self.points)
+        if any(x is not None and x.requires_grad for x in arrays):
+            raise ValueError(
+                "Geometry.content_hash needs arrays that do not require "
+                "grad; it is a host-side cache key, not a differentiable "
+                "function")
+        h = hashlib.sha256()
+
+        def feed(tag: bytes, x):
+            if x is None:
+                h.update(tag + b":none;")
+                return
+            a = np.ascontiguousarray(x.detach().cpu().numpy())
+            h.update(tag + b":" + str(a.dtype).encode()
+                     + b":" + repr(a.shape).encode() + b";")
+            h.update(a.tobytes())
+
+        if self.cost is not None:
+            feed(b"cost", self.cost)
+        feed(b"pts", self.points)
+        feed(b"w", self.weights)
+        feed(b"feat", self.features)
+        digest = h.hexdigest()
+        object.__setattr__(self, "_content_hash", digest)
+        return digest

@@ -36,6 +36,28 @@ def dense_cost(Cx, Cy, T, loss: str, row_chunk: int = 8):
     return torch.cat(out, dim=0)
 
 
+def dense_cost_lanes(Cx, Cy, T, loss: str, row_chunk: int = 8):
+    """:func:`dense_cost` of B lanes: Cx (B, m, m), Cy (B, n, n), T
+    (B, m, n) -> (B, m, n).
+
+    Decomposable losses take a batched matmul for the (m, n) term and a
+    matvec per lane for the marginal terms: a batched matvec of B >= 2
+    runs another kernel than the single matvec of :func:`dense_cost` and
+    sums in another order, so with this split a lane's bits are its solo
+    bits on the CPU (the batched matmul is lane by lane the single one).
+    The other losses take the chunked contraction, lane by lane."""
+    dec = gc.get_decomposition(loss)
+    if dec is None:
+        return torch.stack([dense_cost(cx, cy, t, loss, row_chunk)
+                            for cx, cy, t in zip(Cx, Cy, T)])
+    mu = T.sum(dim=2)                 # row marginals (B, m)
+    nu = T.sum(dim=1)                 # col marginals (B, n)
+    term1 = torch.stack([f @ x for f, x in zip(dec.f1(Cx), mu)])
+    term2 = torch.stack([f @ x for f, x in zip(dec.f2(Cy), nu)])
+    term3 = dec.h1(Cx) @ T @ dec.h2(Cy).transpose(1, 2)
+    return term1[:, :, None] + term2[:, None, :] - term3
+
+
 def gw_objective(Cx, Cy, T, loss: str, row_chunk: int = 8):
     """⟨L(Cx, Cy) ⊗ T, T⟩."""
     return torch.sum(dense_cost(Cx, Cy, T, loss, row_chunk) * T)

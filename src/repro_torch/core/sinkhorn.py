@@ -17,6 +17,14 @@ Subnormals are flushed where the reference's XLA flush changes a result
 (see ``core/utils.py``): the marginals' logs, the plain-domain inputs and
 the products inside its matvecs, and the returned coupling values.
 
+The ``*_lanes`` / ``*_batched`` variants run B independent solves (the
+lanes of a server flush) in one batch: dense ones over (B, m, n) stacks,
+sparse ones over one segment space of B·m rows and B·n columns (each
+lane's indices offset by its lane), so a lane's segment sums hold only
+its own entries. With ``tol > 0`` each lane stops on its own, as the
+reference's ``vmap``-ed ``while_loop`` freezes a lane that met its
+tolerance.
+
 ``differentiable`` is kept in the dense signatures for parity: torch's
 plain loop is already differentiable, so it only keeps the reference's
 refusal of ``tol > 0`` with it.
@@ -53,6 +61,31 @@ def _scaling_loop(body, init, iters: int, tol: float):
         delta = torch.max(torch.abs(torch.cat(new) - torch.cat(carry)))
         carry = new
         if bool(delta <= tol):
+            break
+    return carry
+
+
+def _scaling_loop_lanes(body, init, iters: int, tol: float):
+    """:func:`_scaling_loop` over lanes: ``init`` is a tuple of (B, ·)
+    potentials. With ``tol > 0`` a lane's change is the sup-norm over its
+    own potentials; a lane that met ``tol`` keeps the update that did so
+    and changes no more. The lanes still active are read on the host after
+    every iteration."""
+    carry = init
+    if not tol or tol <= 0.0:
+        for _ in range(iters):
+            carry = body(carry)
+        return carry
+    active = torch.ones(carry[0].shape[0], dtype=torch.bool,
+                        device=carry[0].device)
+    for _ in range(iters):
+        new = body(carry)
+        delta = torch.amax(torch.abs(torch.cat(new, 1) - torch.cat(carry, 1)),
+                           dim=1)
+        carry = tuple(torch.where(active[:, None], x, y)
+                      for x, y in zip(new, carry))
+        active = active & ~(delta <= tol)
+        if not bool(active.any()):
             break
     return carry
 
@@ -128,29 +161,37 @@ def sinkhorn_log_batched(a, b, logK, iters: int, tol: float = 0.0):
     Bn, m, n = logK.shape
     la = log_floor(a)
     lb = log_floor(b)
-    f = torch.zeros((Bn, m), dtype=logK.dtype, device=logK.device)
-    g = torch.zeros((Bn, n), dtype=logK.dtype, device=logK.device)
+    f0 = torch.zeros((Bn, m), dtype=logK.dtype, device=logK.device)
+    g0 = torch.zeros((Bn, n), dtype=logK.dtype, device=logK.device)
 
-    def body(f, g):
+    def body(carry):
+        f, g = carry
         f = _finite(la - torch.logsumexp(logK + g[:, None, :], dim=2))
         g = _finite(lb - torch.logsumexp(logK + f[:, :, None], dim=1))
-        return f, g
+        return (f, g)
 
-    if not tol or tol <= 0.0:
-        for _ in range(iters):
-            f, g = body(f, g)
-    else:
-        active = torch.ones(Bn, dtype=torch.bool, device=logK.device)
-        for _ in range(iters):
-            f_new, g_new = body(f, g)
-            delta = torch.maximum(torch.amax(torch.abs(f_new - f), dim=1),
-                                  torch.amax(torch.abs(g_new - g), dim=1))
-            f = torch.where(active[:, None], f_new, f)
-            g = torch.where(active[:, None], g_new, g)
-            active = active & ~(delta <= tol)
-            if not bool(active.any()):
-                break
+    f, g = _scaling_loop_lanes(body, (f0, g0), iters, tol)
     return flush_subnormal(torch.exp(logK + f[:, :, None] + g[:, None, :]))
+
+
+def sinkhorn_batched(a, b, K, iters: int, tol: float = 0.0):
+    """B plain Sinkhorn solves in one batch (lanes of :func:`sinkhorn`):
+    a (B, m), b (B, n), K (B, m, n); returns the (B, m, n) couplings."""
+    a, b, K = flush_subnormal(a), flush_subnormal(b), flush_subnormal(K)
+    Bn, m, n = K.shape
+    Kt = K.transpose(1, 2)
+    u0 = torch.ones((Bn, m), dtype=K.dtype, device=K.device)
+    v0 = torch.ones((Bn, n), dtype=K.dtype, device=K.device)
+
+    def body(carry):
+        u, v = carry
+        u = safe_div(a, flush_subnormal(K * v[:, None, :]).sum(dim=2))
+        v = safe_div(b, flush_subnormal(Kt * u[:, None, :]).sum(dim=2))
+        return (u, v)
+
+    u, v = _scaling_loop_lanes(body, (u0, v0), iters, tol)
+    return flush_subnormal(flush_subnormal(u[:, :, None] * K)
+                           * v[:, None, :])
 
 
 def sinkhorn_unbalanced(a, b, K, lam, eps, iters: int, tol: float = 0.0):
@@ -290,3 +331,59 @@ def sparse_sinkhorn_unbalanced_log(a, b, rows, cols, logvals, lam, eps,
 
     f, g = _scaling_loop(body, (f0, g0), iters, tol)
     return flush_subnormal(torch.exp(logvals + f[rows] + g[cols]))
+
+
+def _lane_flat(idx, size: int):
+    """(B, s) per-lane indices into [0, size) as (B·s,) indices into one
+    segment space of B·size, lane b offset by b·size."""
+    lane = torch.arange(idx.shape[0], device=idx.device)[:, None]
+    return (idx + size * lane).reshape(-1)
+
+
+def sparse_sinkhorn_lanes(a, b, rows, cols, vals, iters: int,
+                          tol: float = 0.0):
+    """B plain-domain sparse Sinkhorn solves (lanes of
+    :func:`sparse_sinkhorn`): a (B, m), b (B, n), rows, cols, vals (B, s);
+    returns the (B, s) coupling values."""
+    a, b, vals = flush_subnormal(a), flush_subnormal(b), flush_subnormal(vals)
+    (Bn, m), n, s = a.shape, b.shape[1], rows.shape[1]
+    r, c, kv = _lane_flat(rows, m), _lane_flat(cols, n), vals.reshape(-1)
+    u0 = torch.ones((Bn, m), dtype=vals.dtype, device=vals.device)
+    v0 = torch.ones((Bn, n), dtype=vals.dtype, device=vals.device)
+
+    def body(carry):
+        u, v = carry
+        u = safe_div(a, coo_matvec(r, c, kv, v.reshape(-1), Bn * m)
+                     .view(Bn, m))
+        v = safe_div(b, coo_matvec(c, r, kv, u.reshape(-1), Bn * n)
+                     .view(Bn, n))
+        return (u, v)
+
+    u, v = _scaling_loop_lanes(body, (u0, v0), iters, tol)
+    return flush_subnormal(flush_subnormal(u.reshape(-1)[r] * kv)
+                           * v.reshape(-1)[c]).view(Bn, s)
+
+
+def sparse_sinkhorn_logdomain_lanes(a, b, rows, cols, logvals, iters: int,
+                                    tol: float = 0.0):
+    """B log-domain sparse Sinkhorn solves (lanes of
+    :func:`sparse_sinkhorn_logdomain`): a (B, m), b (B, n), rows, cols,
+    logvals (B, s); returns the (B, s) coupling values."""
+    (Bn, m), n, s = a.shape, b.shape[1], rows.shape[1]
+    r, c, lv = _lane_flat(rows, m), _lane_flat(cols, n), logvals.reshape(-1)
+    la = log_floor(a)
+    lb = log_floor(b)
+    f0 = torch.zeros((Bn, m), dtype=logvals.dtype, device=logvals.device)
+    g0 = torch.zeros((Bn, n), dtype=logvals.dtype, device=logvals.device)
+
+    def body(carry):
+        f, g = carry
+        f = _finite(la - segment_logsumexp(lv + g.reshape(-1)[c], r, Bn * m)
+                    .view(Bn, m))
+        g = _finite(lb - segment_logsumexp(lv + f.reshape(-1)[r], c, Bn * n)
+                    .view(Bn, n))
+        return (f, g)
+
+    f, g = _scaling_loop_lanes(body, (f0, g0), iters, tol)
+    return flush_subnormal(torch.exp(lv + f.reshape(-1)[r]
+                                     + g.reshape(-1)[c])).view(Bn, s)

@@ -17,6 +17,15 @@
 // s that is not a multiple of 4 start off a 16-byte boundary, so each row
 // takes up to 3 scalar head elements, then float4s, then a scalar tail.
 // Nothing is padded: padding would copy the s² matrix.
+//
+// Lanes: spar_matvec_lanes_launch runs B independent matvecs (B lanes of a
+// server flush) in one launch, blockIdx.y being the lane; lane b reads its
+// matrix at L + b * lane_stride and its t, off and out at b * s. A lane's row
+// is summed exactly as the single-lane launch sums it: the same warp, the same
+// head (taken from the row's address), the same order. So a lane's output is
+// bitwise that of a single-lane launch on a matrix with the same address mod
+// 16 bytes, whatever its mates and whatever B; the lanes' wrapper keeps every
+// lane's matrix 16-byte aligned (lane_stride a multiple of 4 floats) for that.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -29,6 +38,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 __global__ void spar_matvec_kernel(const float* __restrict__ L,
+                                   long long lane_stride,
                                    const float* __restrict__ t,
                                    const float* __restrict__ off,
                                    float* __restrict__ out, long long s) {
@@ -36,6 +46,11 @@ __global__ void spar_matvec_kernel(const float* __restrict__ L,
   const long long k =
       (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (k >= s) return;  // whole warps leave together: k is uniform per warp
+  const long long b = blockIdx.y;  // the lane
+  L += b * lane_stride;
+  t += b * s;
+  off += b * s;
+  out += b * s;
   const float* row = L + k * s;
   long long head = (long long)(((16u - ((uintptr_t)row & 15u)) & 15u) >> 2);
   if (head > s) head = s;
@@ -61,15 +76,25 @@ __global__ void spar_matvec_kernel(const float* __restrict__ L,
 
 }  // namespace
 
-// threads: threads per block, a multiple of 32 (one warp per output row).
-// Returns the cudaError_t of the launch (0 on success).
+// threads: threads per block, a multiple of 32 (one warp per output row);
+// lanes: 1 to 65535. Returns the cudaError_t of the launch (0 on success).
+extern "C" int spar_matvec_lanes_launch(const float* L, long long lane_stride,
+                                        const float* t, const float* off,
+                                        float* out, long long s, int lanes,
+                                        int threads, void* stream) {
+  if (s <= 0 || lanes <= 0) return 0;
+  const long long rows_per_block = threads / 32;
+  const long long blocks = (s + rows_per_block - 1) / rows_per_block;
+  const dim3 grid((unsigned)blocks, (unsigned)lanes);
+  spar_matvec_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      L, lane_stride, t, off, out, s);
+  return (int)cudaGetLastError();
+}
+
+// One matvec: the lanes launch with a single lane.
 extern "C" int spar_matvec_launch(const float* L, const float* t,
                                   const float* off, float* out, long long s,
                                   int threads, void* stream) {
-  if (s <= 0) return 0;
-  const long long rows_per_block = threads / 32;
-  const long long blocks = (s + rows_per_block - 1) / rows_per_block;
-  spar_matvec_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      L, t, off, out, s);
-  return (int)cudaGetLastError();
+  return spar_matvec_lanes_launch(L, s * s, t, off, out, s, 1, threads,
+                                  stream);
 }

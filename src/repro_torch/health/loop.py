@@ -23,6 +23,13 @@ The loop runs on the host, one step at a time: the health verdict of each
 step is read on the host (one synchronisation per outer iteration), so no
 lane masking is needed.
 
+:func:`health_loop_lanes` is the same loop over the B lanes of a server
+flush (the counterpart of the reference's ``vmap`` of this loop): each
+step runs on all lanes at once, the verdicts of all lanes are read in one
+host read per outer iteration, and a lane that converged, died or ran out
+of budget keeps its bits from then on, as the reference's lane freeze
+does. Each lane gets the status that :func:`health_loop` gives it solo.
+
 With ``trace=True`` the loop also fills a
 :class:`~repro_torch.obs.trace.ConvergenceTrace`: per iteration the
 marginal error, the objective (``obj_fn``, evaluated only then), the
@@ -35,6 +42,7 @@ runs.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Callable, NamedTuple, Optional
 
@@ -179,3 +187,153 @@ def health_loop(step_fn: Callable, err_fn: Callable, T0, max_iters: int,
         code = MAXITER
     return LoopResult(T, errors, i, conv,
                       SolveStatus(code, fail_iter, last, n_rescues), tr)
+
+
+def _poison_lanes(fault: FaultSpec, at_iters, T, i: int):
+    """T (B, ...) with the lanes whose fault fires at iteration ``i``
+    poisoned; decided on the host from the lanes' ``at_iter``."""
+    fires = [dataclasses.replace(fault, at_iter=at).fires(i)
+             for at in at_iters]
+    if not any(fires):
+        return T
+    mask = torch.tensor(fires, device=T.device).view(-1, *(1,) * (T.ndim - 1))
+    return torch.where(mask, fault._poison(T), T)
+
+
+def health_loop_lanes(step_fn: Callable, err_fn: Callable, T0,
+                      max_iters: int, tol: float, *, max_rescues: int = 0,
+                      rescue_factor: float = 2.0,
+                      mass_floor: float = DEFAULT_MASS_FLOOR,
+                      mass_ceil: float = DEFAULT_MASS_CEIL,
+                      stall_err: float = DEFAULT_STALL_ERR,
+                      fault: Optional[FaultSpec] = None, at_iters=None,
+                      trace: bool = False,
+                      obj_fn: Optional[Callable] = None) -> list:
+    """:func:`health_loop` over B lanes; returns one LoopResult per lane.
+
+    T0          — (B, ...) the lanes' first iterates, lane first
+    step_fn     — ``step_fn(T, scale) -> T_new`` on all lanes at once;
+                  ``scale`` is a (B,) float64 tensor, lane b's
+                  ``rescue_factor ** n_rescues[b]`` (the step always takes
+                  it: a lane's ε-rescue is its own)
+    err_fn      — ``err_fn(T_new) -> (B,)`` marginal violations
+    obj_fn      — ``obj_fn(T_new) -> (B,)`` objectives, for the trace
+    fault       — a FaultSpec whose ``kind``, ``site`` and ``persistent``
+                  all lanes share; ``at_iters`` (one int per lane) says
+                  when it fires in each lane (default: ``fault.at_iter``
+                  in every lane)
+
+    Each iteration computes every lane, keeps the new iterate of the lanes
+    that are active and healthy, and reads all lanes' verdicts (health and,
+    with ``tol > 0``, the tolerance test) in one host read. The lanes'
+    masks and scales go back to the device only when they change (a lane
+    finished or took a rescue), since a copy to the device waits for the
+    device as a read does. A lane's values are computed on its own data
+    only, so its bits do not depend on its mates.
+    """
+    if fault is not None and not isinstance(fault, FaultSpec):
+        raise TypeError(f"fault must be a FaultSpec or None, got "
+                        f"{type(fault).__name__}")
+    B, dev = T0.shape[0], T0.device
+    if fault is not None and at_iters is None:
+        at_iters = [int(fault.at_iter)] * B
+    red = tuple(range(1, T0.ndim))
+    n_max = max(max_iters, 0)
+    errors = torch.full((B, n_max), math.nan, dtype=torch.float32,
+                        device=dev)
+    tr = (ConvergenceTrace(*(torch.full((B, n_max), math.nan,
+                                        dtype=torch.float32, device=dev)
+                             for _ in ConvergenceTrace._fields))
+          if trace else None)
+
+    def lanes(mask):
+        return mask.view(-1, *(1,) * (T0.ndim - 1))
+
+    def on_device(values, dtype=torch.bool):
+        return torch.tensor(values, dtype=dtype, device=dev)
+
+    def rescue_state():
+        return (on_device([rescue_factor ** k for k in n_rescues],
+                          torch.float64),
+                on_device([k < max_rescues for k in n_rescues]))
+
+    T = T0
+    last_err = torch.full((B,), math.nan, dtype=torch.float32, device=dev)
+    fail_iter, n_rescues = [-1] * B, [0] * B
+    conv, dead, n_iters, accepted_any = ([False] * B for _ in range(4))
+    active = [max_iters > 0] * B
+    act = on_device(active)
+    scale, can_rescue = rescue_state()
+    i = 0
+    while i < max_iters and any(active):
+        T_in = (_poison_lanes(fault, at_iters, T, i)
+                if fault is not None and fault.site == "cost" else T)
+        T_new = step_fn(T_in, scale)
+        if fault is not None and fault.site == "iterate":
+            T_new = _poison_lanes(fault, at_iters, T_new, i)
+        l1 = torch.sum(torch.abs(T_new), dim=red)
+        healthy = (torch.isfinite(T_new).flatten(1).all(dim=1)
+                   & (l1 > mass_floor) & (l1 < mass_ceil))
+        err = err_fn(T_new).float()
+        if tol > 0 or trace:
+            delta = (torch.sum(torch.abs(T_new - T), dim=red)
+                     / torch.clamp_min(torch.sum(torch.abs(T), dim=red),
+                                       _TINY))
+        met = delta <= tol if tol > 0 else torch.zeros_like(healthy)
+        acc = act & healthy
+        if trace:
+            rescued = (act & ~healthy & can_rescue).float()
+            for buf, val in ((tr.mass, l1), (tr.scale, scale.float()),
+                             (tr.rescued, rescued)):
+                buf[:, i] = torch.where(act, val, buf[:, i])
+            tr.err[:, i] = torch.where(acc, err, tr.err[:, i])
+            tr.delta[:, i] = torch.where(acc, delta, tr.delta[:, i])
+            if obj_fn is not None:
+                tr.objective[:, i] = torch.where(
+                    acc, obj_fn(T_new).float(), tr.objective[:, i])
+        errors[:, i] = torch.where(acc, err, errors[:, i])
+        last_err = torch.where(acc, err, last_err)
+        T = torch.where(lanes(acc), T_new, T)
+        healthy_h, met_h = torch.stack([healthy, met]).tolist()  # one read
+        rescues = 0
+        for b in range(B):
+            if not active[b]:
+                continue
+            n_iters[b] = i + 1      # rescues consume budget too
+            if healthy_h[b]:
+                accepted_any[b] = True
+                conv[b] = tol > 0 and bool(met_h[b])
+            else:
+                if fail_iter[b] < 0:
+                    fail_iter[b] = i
+                if n_rescues[b] < max_rescues:
+                    n_rescues[b] += 1
+                    rescues += 1
+                else:
+                    dead[b] = True
+        i += 1
+        still = [a and not (c or d) and i < max_iters
+                 for a, c, d in zip(active, conv, dead)]
+        if still != active and any(still):
+            act = on_device(still)
+        active = still
+        if rescues and any(active):
+            scale, can_rescue = rescue_state()
+
+    last_h = last_err.tolist()
+    results = []
+    for b in range(B):
+        last = last_h[b] if accepted_any[b] else math.nan
+        if dead[b]:
+            code = DIVERGED
+        elif conv[b] and last > stall_err:
+            code = STALLED
+        elif conv[b]:
+            code = CONVERGED
+        else:
+            code = MAXITER
+        results.append(LoopResult(
+            T[b], errors[b], n_iters[b], conv[b],
+            SolveStatus(code, fail_iter[b], last, n_rescues[b]),
+            None if tr is None else ConvergenceTrace(*(x[b] for x in tr))))
+    return results

@@ -18,6 +18,12 @@ Three interchangeable implementations of the affine contract
 ``"auto"`` picks ``materialized`` while s²·4 bytes fit the budget, else
 ``pallas`` on CUDA tensors and ``jnp`` on CPU tensors. Nothing is padded:
 the kernels mask their ragged edges themselves.
+
+:func:`make_spar_cost_fn_lanes` is the same contract over the B lanes of
+a server flush, ``fn(t (B, s), off) -> (B, s)``. The budget gate is per
+lane, as the reference's ``vmap`` applies it: materialized lanes share
+one (B, s, s) stack and one matvec launch a call; past the gate each
+lane runs its own closure (the gather-fused kernel once per lane).
 """
 from __future__ import annotations
 
@@ -138,3 +144,68 @@ def make_spar_cost_fn(Cx, Cy, rows, cols, loss: str, impl: str = "auto",
         return fn
 
     raise ValueError(f"unknown spar_cost impl: {impl!r}")
+
+
+def _lanes_vec(x, B: int, s: int, device):
+    """An offset that broadcasts to (B, s) (a scalar, (B, 1) or (B, s)) as
+    a contiguous (B, s) float32."""
+    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    return x.expand(B, s).contiguous()
+
+
+def materialize_lanes(Cxs, Cys, rows, cols, loss: str, chunk: int = 1024):
+    """The (B, s, s) float32 loss matrices of B lanes (lane b from
+    ``Cxs[b]``, ``Cys[b]`` and the support ``rows[b]``, ``cols[b]``).
+
+    One buffer whose lane stride is s² rounded up to a multiple of 4
+    floats: every lane's matrix is then 16-byte aligned, as a matrix of
+    its own is, and the lanes launch sums each lane bitwise as a
+    single-lane launch does. Each lane is built as the single-lane route
+    builds it (one gather, or row chunks past a third of the budget).
+    """
+    B, s = rows.shape
+    dev = rows.device
+    stride = -(-s * s // 4) * 4
+    Lmat = torch.empty(B * stride, dtype=torch.float32,
+                       device=dev).as_strided((B, s, s), (stride, s, 1))
+    direct_ok = 3 * s * s * 4 <= dispatch.materialize_budget()
+    for b in range(B):
+        materialize_loss(Cxs[b], Cys[b], rows[b], cols[b], loss,
+                         None if direct_ok else chunk, out=Lmat[b])
+    return Lmat
+
+
+def make_spar_cost_fn_lanes(Cxs, Cys, rows, cols, loss: str,
+                            impl: str = "auto", chunk: int = 1024,
+                            block: Optional[int] = None
+                            ) -> Callable[..., torch.Tensor]:
+    """Build ``fn(t, off=0.0) -> (B, s) f32`` computing L-matvec(t) + off
+    for B lanes: ``Cxs[b]`` (m, m) and ``Cys[b]`` (n, n) the lanes' costs,
+    ``rows`` and ``cols`` (B, s) their supports, ``t`` and ``off`` (B, s)
+    (``off`` may be a scalar).
+
+    Materialized (``"auto"`` under the budget, per lane): one (B, s, s)
+    stack, built once (:func:`materialize_lanes`), and one matvec launch
+    over all lanes a call. Any other impl: each lane's own
+    :func:`make_spar_cost_fn` closure, called lane by lane.
+    """
+    B, s = rows.shape
+    dev = rows.device
+    impl = resolve_impl(impl, s, dev)
+    if impl == "materialized":
+        b = dispatch.block_size("spar_cost", block)
+        Lmat = materialize_lanes(Cxs, Cys, rows, cols, loss, chunk)
+
+        def fn(t, off=0.0):
+            return spar_matvec_cuda(Lmat, t.contiguous(),
+                                    _lanes_vec(off, B, s, dev), threads=b)
+        return fn
+
+    fns = [make_spar_cost_fn(Cxs[k], Cys[k], rows[k], cols[k], loss,
+                             impl=impl, chunk=chunk, block=block)
+           for k in range(B)]
+
+    def fn_lanes(t, off=0.0):
+        offs = _lanes_vec(off, B, s, dev)
+        return torch.stack([f(t[k], offs[k]) for k, f in enumerate(fns)])
+    return fn_lanes

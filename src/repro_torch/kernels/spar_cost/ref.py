@@ -63,17 +63,22 @@ def spar_cost_error_scale(Cx, Cy, rows, cols, t, off, loss: str,
     return torch.cat(out) + torch.abs(off)
 
 
-def materialize_loss(Cx, Cy, rows, cols, loss: str, chunk: int = None):
+def materialize_loss(Cx, Cy, rows, cols, loss: str, chunk: int = None,
+                     out=None):
     """Lmat[k, l] = L(Cx[r_k, r_l], Cy[c_k, c_l]) — (s, s) float32.
 
     Default is one vectorized gather with a ~3·s² transient (Gx, Gy,
-    result); pass ``chunk`` to bound the transient to O(chunk·s).
+    result); pass ``chunk`` to bound the transient to O(chunk·s). ``out``
+    (an (s, s) float32 tensor, e.g. one lane of a lane stack) receives the
+    matrix instead of a new one.
     """
     L = gc.get_loss(loss)
     if chunk is None:
-        return L(Cx[rows][:, rows], Cy[cols][:, cols]).float()
+        Lmat = L(Cx[rows][:, rows], Cy[cols][:, cols]).float()
+        return Lmat if out is None else out.copy_(Lmat)
     s = rows.shape[0]
-    Lmat = torch.empty((s, s), dtype=torch.float32, device=Cx.device)
+    Lmat = (torch.empty((s, s), dtype=torch.float32, device=Cx.device)
+            if out is None else out)
     for lo in range(0, s, chunk):
         rk, ck = rows[lo:lo + chunk], cols[lo:lo + chunk]
         Lmat[lo:lo + chunk] = L(Cx[rk][:, rows], Cy[ck][:, cols])

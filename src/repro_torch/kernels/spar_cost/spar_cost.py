@@ -16,7 +16,10 @@ compute the affine form ``out = L-matvec(t) + off`` with fp32 accumulation
   permutation that scatters the outputs back (``perm``).
 - :func:`spar_matvec_cuda` — materialized-support matvec
   (``csrc/spar_matvec.cu``, replaces ``spar_matvec_pallas``) over the
-  iteration-invariant loss matrix.
+  iteration-invariant loss matrix. It also takes a lane axis: Lmat
+  (B, s, s), t and off (B, s), one launch for the B lanes of a server
+  flush (the reference runs the Pallas kernel under ``vmap`` there), each
+  lane bitwise what a single-lane launch gives it.
 
 A wrapper given CUDA tensors launches its kernel on the current stream or
 raises; given CPU tensors it runs the plain PyTorch version beside it.
@@ -26,10 +29,11 @@ Gradients. The matvec is differentiable: with grad enabled and an input
 that requires grad, :func:`spar_matvec_cuda` goes through
 :class:`SparMatvec`, whose forward is the kernel (or the plain version on
 CPU tensors) and whose backward is plain torch (dLmat = g ⊗ t,
-dt = Lmatᵀ g, doff = g), the gradient the reference's CPU route
-(``Lmat @ t``) has. The reference has no backward for any Pallas kernel,
-so no backward kernel is written. The gather-fused kernel refuses a
-gradient as the reference's does (``dispatch.refuse_grad``).
+dt = Lmatᵀ g, doff = g; in ``bmm`` form over lanes), the gradient the
+reference's CPU route (``Lmat @ t``) has. The reference has no backward
+for any Pallas kernel, so no backward kernel is written. The
+gather-fused kernel refuses a gradient as the reference's does
+(``dispatch.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -53,12 +57,19 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
+# gridDim.y of the lanes launch
+MAX_LANES = 65535
+
+
 @functools.lru_cache(maxsize=None)
-def _matvec_fn():
-    fn = cuda_lib.load("spar_matvec").spar_matvec_launch
-    fn.argtypes = [_P, _P, _P, _P, _LL, _I, _P]
-    fn.restype = _I
-    return fn
+def _matvec_lib():
+    lib = cuda_lib.load("spar_matvec")
+    lib.spar_matvec_launch.argtypes = [_P, _P, _P, _P, _LL, _I, _P]
+    lib.spar_matvec_launch.restype = _I
+    lib.spar_matvec_lanes_launch.argtypes = [_P, _LL, _P, _P, _P, _LL, _I,
+                                             _I, _P]
+    lib.spar_matvec_lanes_launch.restype = _I
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
@@ -89,17 +100,24 @@ def check_threads(threads: int):
 
 
 def spar_matvec_plain(Lmat, t, off):
-    """Plain version of the matvec kernel: Lmat @ t + off."""
+    """Plain version of the matvec kernel: Lmat @ t + off; with a lane
+    axis, that of each lane (a lane's bits are then its single-lane bits,
+    as the kernel's are)."""
+    if Lmat.ndim == 3:
+        return torch.stack([L @ x for L, x in zip(Lmat, t)]) + off
     return Lmat @ t + off
 
 
 def spar_matvec_cuda(Lmat, t, off, threads: int = 256):
-    """out = Lmat @ t + off, (s,) float32.
+    """out = Lmat @ t + off, (s,) float32, or (B, s) over B lanes.
 
-    Lmat (s, s), t and off (s,), all float32 and contiguous. CUDA tensors
-    launch the kernel; CPU tensors take :func:`spar_matvec_plain`. With
-    grad enabled and an input requiring grad the call goes through
-    :class:`SparMatvec` and its output carries the gradient.
+    Lmat (s, s), t and off (s,), all float32 and contiguous; or Lmat
+    (B, s, s) with contiguous rows and 16-byte aligned lanes (a lane
+    stride that is a multiple of 4 floats), t and off (B, s) contiguous,
+    one launch for all lanes. CUDA tensors launch the kernel; CPU tensors
+    take :func:`spar_matvec_plain`. With grad enabled and an input
+    requiring grad the call goes through :class:`SparMatvec` and its
+    output carries the gradient.
     """
     if torch.is_grad_enabled() and (Lmat.requires_grad or t.requires_grad
                                     or off.requires_grad):
@@ -123,6 +141,11 @@ class SparMatvec(torch.autograd.Function):
     def backward(ctx, g):
         Lmat, t = ctx.saved_tensors
         need_L, need_t, need_off, _ = ctx.needs_input_grad
+        if g.ndim == 2:                                  # lanes: bmm form
+            return (g[:, :, None] * t[:, None, :] if need_L else None,
+                    (Lmat.transpose(1, 2) @ g[..., None])[..., 0]
+                    if need_t else None,
+                    g if need_off else None, None)
         return (torch.outer(g, t) if need_L else None,
                 Lmat.t().mv(g) if need_t else None,
                 g if need_off else None, None)
@@ -131,6 +154,8 @@ class SparMatvec(torch.autograd.Function):
 def _spar_matvec_forward(Lmat, t, off, threads: int):
     if not Lmat.is_cuda:
         return spar_matvec_plain(Lmat, t, off)
+    if Lmat.ndim == 3:
+        return _spar_matvec_lanes(Lmat, t, off, threads)
     s = Lmat.shape[0]
     dev = Lmat.device
     check_tensor("Lmat", Lmat, (s, s), torch.float32, dev)
@@ -139,8 +164,39 @@ def _spar_matvec_forward(Lmat, t, off, threads: int):
     check_threads(threads)
     out = torch.empty(s, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    raise_on(_matvec_fn()(Lmat.data_ptr(), t.data_ptr(), off.data_ptr(),
-                           out.data_ptr(), s, threads, stream), "spar_matvec")
+    raise_on(_matvec_lib().spar_matvec_launch(
+        Lmat.data_ptr(), t.data_ptr(), off.data_ptr(), out.data_ptr(), s,
+        threads, stream), "spar_matvec")
+    LAUNCHES["spar_matvec"] += 1
+    return out
+
+
+def _spar_matvec_lanes(Lmat, t, off, threads: int):
+    """The lanes launch on (B, s, s) / (B, s) CUDA tensors, checked here."""
+    B, s = Lmat.shape[0], Lmat.shape[1]
+    dev = Lmat.device
+    if tuple(Lmat.shape) != (B, s, s):
+        raise ValueError(f"Lmat has shape {tuple(Lmat.shape)}, expected "
+                         f"(B, s, s)")
+    if Lmat.dtype != torch.float32:
+        raise TypeError(f"Lmat has dtype {Lmat.dtype}, expected "
+                        f"torch.float32")
+    lane_stride = Lmat.stride(0)
+    if (Lmat.stride(2) != 1 or Lmat.stride(1) != s or lane_stride < s * s
+            or lane_stride % 4 or Lmat.data_ptr() % 16):
+        raise ValueError("Lmat needs contiguous rows and 16-byte aligned "
+                         "lanes (a lane stride that is a multiple of 4 "
+                         "floats)")
+    if not 1 <= B <= MAX_LANES:
+        raise ValueError(f"lanes must be in [1, {MAX_LANES}], got {B}")
+    check_tensor("t", t, (B, s), torch.float32, dev)
+    check_tensor("off", off, (B, s), torch.float32, dev)
+    check_threads(threads)
+    out = torch.empty((B, s), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    raise_on(_matvec_lib().spar_matvec_lanes_launch(
+        Lmat.data_ptr(), lane_stride, t.data_ptr(), off.data_ptr(),
+        out.data_ptr(), s, B, threads, stream), "spar_matvec")
     LAUNCHES["spar_matvec"] += 1
     return out
 

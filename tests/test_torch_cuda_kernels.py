@@ -251,6 +251,104 @@ def test_solve_on_card_matches_cpu(dev, cost_impl):
     assert gpu["status"]["code"] == cpu["status"]["code"]
 
 
+def _lanes_matrix(B, s, seed, dev):
+    """(B, s, s) uniform matrices on the card in one buffer whose lane
+    stride is s² rounded up to 4 floats (every lane 16-byte aligned, as
+    ``ops.materialize_lanes`` lays them out)."""
+    stride = -(-s * s // 4) * 4
+    g = torch.Generator(device=dev).manual_seed(seed)
+    buf = torch.rand(B * stride, generator=g, device=dev)
+    return buf.as_strided((B, s, s), (stride, s, 1))
+
+
+@pytest.mark.parametrize("B,s,threads", [(1, 31, 256), (3, 1003, 256),
+                                         (5, 2001, 64), (8, 2048, 256)])
+def test_matvec_lanes_match_plain_and_single_lane_launches(dev, B, s,
+                                                           threads):
+    """K1's lane launch: one launch for B lanes, within the kernel bound of
+    its plain version, and each lane bitwise what a single-lane launch
+    gives on a fresh copy of that lane's inputs."""
+    L = _lanes_matrix(B, s, 0, dev)
+    t = _rand((B, s), 1, dev) - 0.5
+    off = _rand((B, s), 2, dev, lo=-3.0)
+    spar_cost.reset_launch_counts()
+    got = spar_cost.spar_matvec_cuda(L, t, off, threads=threads)
+    torch.cuda.synchronize()
+    assert spar_cost.LAUNCHES["spar_matvec"] == 1
+    want = spar_cost.spar_matvec_plain(L, t, off)
+    scale = torch.stack([L[b].abs() @ t[b].abs() for b in range(B)]) \
+        + off.abs()
+    assert torch.all((got - want).abs() <= RTOL_SCALE * scale)
+    singles = torch.stack([spar_cost.spar_matvec_cuda(
+        L[b].clone(), t[b].clone(), off[b].clone(), threads=threads)
+        for b in range(B)])
+    assert torch.equal(got, singles)
+
+
+def test_matvec_lanes_input_checks(dev):
+    s = 31
+    L = _rand((2, s, s), 0, dev)          # lane stride 961: not aligned
+    t, off = _rand((2, s), 1, dev), _rand((2, s), 2, dev)
+    with pytest.raises(ValueError, match="aligned"):
+        spar_cost.spar_matvec_cuda(L, t, off)
+    with pytest.raises(ValueError):
+        spar_cost.spar_matvec_cuda(_lanes_matrix(2, s, 0, dev), t[:1], off)
+
+
+def test_matvec_lanes_backward_matches_autograd_through_plain(dev):
+    B, s = 3, 256                 # s² a multiple of 4: clones stay aligned
+    ins = [_lanes_matrix(B, s, 0, dev), _rand((B, s), 1, dev) - 0.5,
+           _rand((B, s), 2, dev, lo=-3.0)]
+    w = _rand((B, s), 3, dev) - 0.5
+    got = [x.clone().requires_grad_(True) for x in ins]
+    want = [x.clone().requires_grad_(True) for x in ins]
+    out = spar_cost.spar_matvec_cuda(*got)
+    assert "SparMatvec" in type(out.grad_fn).__name__
+    g_k = torch.autograd.grad((out * w).sum(), got)
+    g_p = torch.autograd.grad(
+        (spar_cost.spar_matvec_plain(*want) * w).sum(), want)
+    assert torch.equal(g_k[0], g_p[0]) and torch.equal(g_k[2], g_p[2])
+    scale = torch.stack([ins[0][b].abs().t() @ w[b].abs()
+                         for b in range(B)])
+    assert torch.all((g_k[1] - g_p[1]).abs() <= RTOL_SCALE * scale)
+
+
+def test_spar_lanes_on_card_match_solo_solves(dev):
+    """A flush of spar lanes on the card: K1 once a step for all lanes
+    (20 steps and the value), each lane within value rtol 1e-4 and
+    coupling atol 1e-6 + rtol 1e-3 of its solo solve from the same
+    generator state (the same support; index_add_ sums with atomics)."""
+    from repro_torch.serve.batching import GeneratorState, stack_items
+    from repro_torch.serve.lanes import run_lanes
+
+    n, B = 64, 4
+    rng = np.random.default_rng(0)
+    a = np.full(n, 1.0 / n, np.float32)
+    probs = []
+    for _ in range(B):
+        x, y = rng.random((n, 2)), rng.random((n, 2))
+        Cx = np.sqrt(((x[:, None] - x[None]) ** 2).sum(-1))
+        Cy = np.sqrt(((y[:, None] - y[None]) ** 2).sum(-1))
+        probs.append(interop.to_problem(Cx, a, Cy, a, device=dev))
+    solver = SparGWSolver(s=16 * n)
+    states = [GeneratorState.of(torch.Generator(device=dev).manual_seed(k))
+              for k in range(B)]
+    spar_cost.reset_launch_counts()
+    outs = run_lanes(stack_items([(p, solver, st)
+                                  for p, st in zip(probs, states)]))
+    torch.cuda.synchronize()
+    assert spar_cost.LAUNCHES["spar_matvec"] == solver.outer_iters + 1
+    for out, p, st in zip(outs, probs, states):
+        solo = solver.run(p, generator=st.restore())
+        assert torch.equal(out.coupling.rows, solo.coupling.rows)
+        np.testing.assert_allclose(float(out.value), float(solo.value),
+                                   rtol=1e-4)
+        np.testing.assert_allclose(out.coupling.vals.cpu().numpy(),
+                                   solo.coupling.vals.cpu().numpy(),
+                                   rtol=1e-3, atol=1e-6)
+        assert out.status.code == solo.status.code
+
+
 @pytest.mark.parametrize("loss", ["l1", "l2", "kl"])
 @pytest.mark.parametrize("shape,threads", [
     ((1, 1, 1, 1), 256), ((33, 17, 65, 9), 256), ((181, 181, 181, 181), 256),

@@ -18,15 +18,18 @@ from repro_torch.kernels import dispatch
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
-# the multiscale, health, diff, optim and obs modules: scanned like every
-# other file, and required to be there
+# the multiscale, health, diff, optim, obs, serve and launch modules:
+# scanned like every other file, and required to be there
 NEW_MODULES = ("multiscale/anchors.py", "multiscale/compress.py",
                "multiscale/refine.py", "multiscale/solver.py",
                "health/faults.py", "health/fallback.py",
                "diff/__init__.py", "diff/fixed_point.py", "diff/losses.py",
                "diff/barycenter.py", "diff/unrolled.py", "optim/adamw.py",
                "obs/__init__.py", "obs/registry.py", "obs/span.py",
-               "obs/trace.py", "obs/report.py", "obs/http.py")
+               "obs/trace.py", "obs/report.py", "obs/http.py",
+               "serve/__init__.py", "serve/batching.py", "serve/cache.py",
+               "serve/lanes.py", "serve/metrics.py", "serve/server.py",
+               "launch/__init__.py", "launch/serve.py")
 
 
 def _port_files():
@@ -135,3 +138,36 @@ def test_diff_obs_and_optim_import_alone_with_the_reference_names():
     assert out.returncode == 0, out.stderr
     import repro.obs
     assert out.stdout.strip() == str(sorted(repro.obs.__all__))
+
+
+def test_serve_and_launch_import_alone_with_the_reference_names():
+    """``repro_torch.serve`` and ``repro_torch.launch.serve`` import in a
+    fresh process without JAX; ``serve`` exposes the reference's public
+    names but ``enable_compilation_cache`` (the port compiles nothing per
+    shape)."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys\n"
+        "import repro_torch.serve, repro_torch.launch.serve\n"
+        "assert 'jax' not in sys.modules and 'repro' not in sys.modules\n"
+        "print(sorted(repro_torch.serve.__all__))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PYTHONPATH": str(ROOT / "src")},
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    import repro.serve
+    want = sorted(set(repro.serve.__all__) - {"enable_compilation_cache"})
+    assert out.stdout.strip() == str(want)
+
+
+def test_server_and_launcher_raise_without_a_card(monkeypatch):
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import GWServer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GWServer()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_serve.main(["--requests", "1"])
