@@ -91,6 +91,20 @@ Phases; any failure raises and exits non-zero with no result line:
    lane bits against width 2 and the solo solve (printed); a flush of 4
    fused dense requests with a persistent NaN in one: it fails and falls
    back, its mates come back healthy;
+4h. drive the legacy core (``repro_torch.core``): the ``spar_gw`` shim
+   at n = 2048, s = 16n on a generator state, bit for bit the
+   ``repro_torch.solve`` call on the same state (torch's deterministic
+   algorithms on for both), K1 21 launches; ``spar_fgw`` with
+   cost_impl "pallas" (K2 21 launches), bit for bit its solve;
+   ``grid_spar_gw(use_kernel=True, loss="l1")`` at s_r = s_c = 181, bit
+   for bit phase 5's solve on the same state, K3 21 launches; ``sagrow``
+   at n = 2048 with s' = 256 (benchmarks/bench_fig2.py's budget): a
+   finite value and its wall; ``emd_gw`` at n = 40 (cost on the card, LP
+   on the host) against the same on the CPU; ``gw_alignment_loss`` and
+   its gradient on two (4, 512, 3584) hidden tensors against the CPU
+   within 1e-4 of the largest gradient entry; ``make_sharded_grid_gw`` at
+   world size 1 over NCCL (a ``file://`` store in a temporary directory)
+   against the unsharded loop on the card;
 5. drive the grid main path: ``repro_torch.solve`` with
    ``GridGWSolver.default_config(2048)`` (s_r = s_c = 181) and
    ``use_kernel=True`` on the same Moon pair with the l1 loss; the
@@ -118,6 +132,16 @@ Phases; any failure raises and exits non-zero with no result line:
    against its plain version on the q, k, v of the first shared-block
    invocation; the prefill's wall time (median after a warm-up), tokens/s
    and peak memory;
+7b. drive the LM decode path on phase 7's weights: at reduced depth in
+   float32, 32 teacher-forced ``decode_step`` logits against
+   ``Model.forward`` through K5 and K6 on the same tokens, within the
+   reference's decode-vs-forward bound (tests/test_models.py: atol 2e-2,
+   rtol 1e-2; the distance is printed); at full depth in bfloat16,
+   ``launch.serve.generate`` at B = 4, prompt 32, 16 new tokens, twice
+   (tokens in range, logits finite; tokens/s cold and warm, the cache's
+   bytes and the peak memory printed); ``gw_similarity`` at full depth in bfloat16, whose two
+   forwards must each launch K6 81 times; and the CLI, ``launch.serve
+   --mode lm --arch zamba2-7b --reduced --metric gw``, to its end;
 8. time every kernel at its path's shapes against its plain version,
    its bound and, where one exists, one library call (K5 also at
    llama3-8b's attention shape; K1's lane launch at (8, 8192) also
@@ -127,7 +151,8 @@ Phases; any failure raises and exits non-zero with no result line:
 9. trace one grid solve, one spar solve (gather-fused), one unbalanced
    spar solve ("auto"), the low-rank solve cut to 3 outer steps and the
    n = 8192 quantized solve with its coarse solve cut to 1 outer step
-   (both also timed once unprofiled), and one zamba2-7b prefill with
+   (both also timed once unprofiled), one zamba2-7b prefill and one
+   full-depth bf16 decode step (B = 4) with
    ``torch.profiler`` and print each one's wall time, device-busy time,
    idle share and the kernels that take the most device time; then each
    phase's wall time.
@@ -140,13 +165,18 @@ package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import importlib
+import io
 import json
 import math
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -268,6 +298,17 @@ def ssd_rtol(k: int, N: int) -> float:
 
 # the LM main path: zamba2-7b prefill at train_4k's sequence length
 LM_ARCH, LM_BATCH, LM_SEQ = "zamba2_7b", 1, 4096
+# phase 7b: the reference's lm_main defaults (batch, prompt, new tokens),
+# and its decode-vs-forward bound (tests/test_models.py)
+DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 4, 32, 16
+DECODE_ATOL, DECODE_RTOL = 2e-2, 1e-2
+
+# phase 4h: SaGroW's sample budget (benchmarks/bench_fig2.py: s' = s²/n²
+# at s = 16n), EMD-GW's LP size, the alignment loss's hidden tensors
+SAGROW_S_PRIME = 256
+N_EMD = 40
+ALIGN_SHAPE = (4, 512, 3584)
+SHARDED_S, SHARDED_ARGS = 256, ("l2", 0.05, 10, 30)
 LM_PREFILL_REPS = 3
 # full-width, reduced-depth fp32 forward, kernels vs plain versions, in
 # max |difference| over the plain route's largest logit. The routes differ
@@ -562,7 +603,7 @@ def main(parent: Path | None = None) -> int:
     )
     from repro_torch.configs import get_arch, scale_down
     from repro_torch.core.grid_gw import grid_cost
-    from repro_torch.core.utils import flush_subnormal
+    from repro_torch.core.utils import flush_subnormal, log_floor
     from repro_torch.kernels import cuda_lib, dispatch
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -577,7 +618,8 @@ def main(parent: Path | None = None) -> int:
     from repro_torch.lowrank import solver as lowrank_solver
     from repro_torch.lowrank.init import LowRankDraws
     from repro_torch.core import sampling
-    from repro_torch.core import sinkhorn as sinkhorn_loops
+    # the module (the package exports the function sinkhorn, as repro.core)
+    sinkhorn_loops = importlib.import_module("repro_torch.core.sinkhorn")
     from repro_torch.health import FaultSpec, SolveDivergedError
     from repro_torch.lowrank.solver import LowRankGWSolver
     from repro_torch.multiscale import (
@@ -1641,6 +1683,194 @@ def main(parent: Path | None = None) -> int:
     del spar_served, padded_spar
     torch.cuda.empty_cache()
 
+    # -- 4h. the legacy core ------------------------------------------------
+    stamps.append(("4h", time.perf_counter()))
+    legacy = importlib.import_module("repro_torch.core")
+    sagrow_mod = importlib.import_module("repro_torch.core.sagrow")
+    from repro_torch.core import align as align_mod
+    from repro_torch.core import emd as emd_mod
+    from repro_torch.core import sharded_gw
+
+    def same_bits(x, y) -> bool:
+        return x.shape == y.shape and bool(torch.equal(x, y))
+
+    def legacy_call(fn, *args, **kw):
+        """a shim under torch's deterministic algorithms (the sparse
+        Sinkhorn's index_add_ otherwise sums with atomics in no fixed
+        order), without its deprecation warning"""
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return fn(*args, **kw)
+
+    legacy_paths = {}
+    tCx, ta, tCy, tb = (torch.as_tensor(x, device=dev)
+                        for x in (Cx_np, a_np, Cy_np, b_np))
+    M_fgw = rand(N_MAIN, N_MAIN)
+    fgw_problem = repro_torch.QuadraticProblem(
+        repro_torch.Geometry(Cx_np, a_np), repro_torch.Geometry(Cy_np, b_np),
+        M=M_fgw, fused_penalty=0.6)
+    grid_l1 = repro_torch.QuadraticProblem(
+        repro_torch.Geometry(Cx_np, a_np), repro_torch.Geometry(Cy_np, b_np),
+        loss=GRID_LOSS)
+    grid_kernel = dataclasses.replace(GridGWSolver.default_config(N_MAIN),
+                                      use_kernel=True)
+    side = grid_kernel.s_r
+    cases = {
+        "spar_gw": (
+            lambda g: legacy_call(legacy.spar_gw, g, ta, tb, tCx, tCy,
+                                  s=16 * N_MAIN),
+            lambda g: repro_torch.solve(problem, SparGWSolver(s=16 * N_MAIN),
+                                        generator=g),
+            spar_cost, "spar_matvec"),
+        "spar_fgw_pallas": (
+            lambda g: legacy_call(legacy.spar_fgw, g, ta, tb, tCx, tCy, M_fgw,
+                                  s=16 * N_MAIN, cost_impl="pallas"),
+            lambda g: repro_torch.solve(fgw_problem, SparGWSolver(
+                s=16 * N_MAIN, cost_impl="pallas"), generator=g),
+            spar_cost, "spar_cost_fused"),
+        "grid_spar_gw_l1": (
+            lambda g: legacy_call(legacy.grid_spar_gw, g, ta, tb, tCx, tCy,
+                                  s_r=side, s_c=side, loss=GRID_LOSS,
+                                  use_kernel=True),
+            lambda g: repro_torch.solve(grid_l1, grid_kernel, generator=g),
+            gw_cost, "gw_cost")}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, (shim, direct, kmod, kname) in cases.items():
+            torch.cuda.synchronize()
+            kmod.reset_launch_counts()
+            t0 = time.perf_counter()
+            value, coupling = shim(torch.Generator(dev).manual_seed(0))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = dict(kmod.LAUNCHES)
+            out = direct(torch.Generator(dev).manual_seed(0))
+            c = out.coupling
+            want = (c.rows, c.cols, c.block if hasattr(c, "block") else c.vals)
+            bitwise = same_bits(value, out.value) and all(
+                same_bits(x, y) for x, y in zip(coupling, want))
+            if launched[kname] != 21 or not bitwise \
+                    or not math.isfinite(float(value)):
+                raise AssertionError(f"legacy {name}: {kname} launched "
+                                     f"{launched[kname]} times (expected "
+                                     f"21), bitwise {bitwise}, value "
+                                     f"{float(value)}")
+            legacy_paths[name] = {"value": float(value), "wall_s": wall,
+                                  "bitwise_solve": bitwise,
+                                  "launches": launched}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del M_fgw, fgw_problem
+
+    # SaGroW at n = 2048, s' = 256: the dense Sinkhorn of core/sinkhorn
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v_sag, T_sag = sagrow_mod.sagrow(torch.Generator(dev).manual_seed(0),
+                                     ta, tb, tCx, tCy, SAGROW_S_PRIME)
+    v_sag = float(v_sag)
+    torch.cuda.synchronize()
+    sag_wall = time.perf_counter() - t0
+    if not (math.isfinite(v_sag) and bool(T_sag.isfinite().all())):
+        raise AssertionError(f"sagrow: value {v_sag}, finite T "
+                             f"{bool(T_sag.isfinite().all())}")
+    legacy_paths["sagrow"] = {"n": N_MAIN, "s_prime": SAGROW_S_PRIME,
+                              "value": v_sag, "wall_s": sag_wall,
+                              "mass": float(T_sag.sum())}
+    del T_sag
+
+    # EMD-GW at n = 40: float32 cost on the card, float64 LP on the host
+    ex, ea, ey, eb = moon(N_EMD, seed=2)
+    t0 = time.perf_counter()
+    v_emd, T_emd = emd_mod.emd_gw(ea, eb, ex, ey, device=dev)
+    emd_wall = time.perf_counter() - t0
+    v_emd_cpu, T_emd_cpu = emd_mod.emd_gw(ea, eb, ex, ey, device="cpu")
+    emd_err = float(np.abs(T_emd - T_emd_cpu).max())
+    if not (math.isfinite(v_emd) and emd_err <= 1e-9
+            and abs(v_emd - v_emd_cpu) <= 1e-5 * abs(v_emd_cpu)):
+        raise AssertionError(f"emd_gw: card {v_emd} vs CPU {v_emd_cpu}, "
+                             f"plan max diff {emd_err}")
+    legacy_paths["emd_gw"] = {"n": N_EMD, "value": v_emd,
+                              "value_cpu": v_emd_cpu,
+                              "plan_max_abs_diff": emd_err,
+                              "wall_s": emd_wall}
+
+    # the alignment loss and its gradient, card against CPU on one draw
+    h_gen = torch.Generator().manual_seed(4)
+    hx_cpu, hy_cpu = (torch.randn(ALIGN_SHAPE, generator=h_gen)
+                      for _ in range(2))
+    draws = tuple(torch.randint(0, ALIGN_SHAPE[1], (ALIGN_SHAPE[0], 64),
+                                generator=h_gen) for _ in range(2))
+    align_out = {}
+    for where, on in (("card", dev), ("cpu", torch.device("cpu"))):
+        hx = hx_cpu.to(on).requires_grad_(True)
+        hy = hy_cpu.to(on).requires_grad_(True)
+        t0 = time.perf_counter()
+        val = align_mod.gw_alignment_loss(None, hx, hy, draws=draws)
+        val.backward()
+        torch.cuda.synchronize()
+        align_out[where] = (float(val.detach()), hx.grad.cpu(),
+                            hy.grad.cpu(), time.perf_counter() - t0)
+    grad_err = max(float((g - w).abs().max() / w.abs().max())
+                   for g, w in zip(align_out["card"][1:3],
+                                   align_out["cpu"][1:3]))
+    if not (math.isfinite(align_out["card"][0]) and grad_err <= GRAD_RTOL
+            and abs(align_out["card"][0] - align_out["cpu"][0])
+            <= 1e-5 * abs(align_out["cpu"][0])):
+        raise AssertionError(f"gw_alignment_loss: card "
+                             f"{align_out['card'][0]} vs CPU "
+                             f"{align_out['cpu'][0]}, gradient max rel err "
+                             f"{grad_err} (bound {GRAD_RTOL})")
+    legacy_paths["gw_alignment_loss"] = {
+        "shape": list(ALIGN_SHAPE), "value": align_out["card"][0],
+        "value_cpu": align_out["cpu"][0], "grad_max_rel_err": grad_err,
+        "wall_s_value_and_grad": align_out["card"][3]}
+    del hx_cpu, hy_cpu, align_out
+
+    # the sharded grid solver at world size 1 over NCCL, against the
+    # unsharded loop on the card
+    sh_gen = torch.Generator(dev).manual_seed(5)
+    CxR = torch.rand(SHARDED_S, SHARDED_S, generator=sh_gen, device=dev)
+    CyC = torch.rand(SHARDED_S, SHARDED_S, generator=sh_gen, device=dev)
+    CxR, CyC = (CxR + CxR.t()) / 2, (CyC + CyC.t()) / 2
+    aR = torch.full((SHARDED_S,), 1.0 / SHARDED_S, device=dev)
+    w_sh = torch.ones(SHARDED_S, SHARDED_S, device=dev)
+    loss, eps, outer, inner = SHARDED_ARGS
+    with tempfile.TemporaryDirectory() as store_dir:
+        torch.distributed.init_process_group(
+            "nccl", init_method=f"file://{store_dir}/store", rank=0,
+            world_size=1)
+        try:
+            mesh = sharded_gw.ProcessMesh(1, 1)
+            fn = sharded_gw.make_sharded_grid_gw(mesh, SHARDED_S, SHARDED_S,
+                                                 *SHARDED_ARGS)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", FutureWarning)
+                v_sh, T_sh = fn(CxR, CyC, aR, aR, w_sh)
+            v_sh = float(v_sh)
+            sh_wall = time.perf_counter() - t0
+        finally:
+            torch.distributed.destroy_process_group()
+    T_ref = aR[:, None] * aR[None, :]
+    for _ in range(outer):
+        logK = (-grid_cost(CxR, CyC, T_ref, loss) / eps + torch.log(w_sh)
+                + log_floor(T_ref))
+        T_ref = sinkhorn_loops.sinkhorn_log(aR, aR, logK, inner)
+    v_ref = float(torch.sum(T_ref * grid_cost(CxR, CyC, T_ref, loss)))
+    sh_err = float(((T_sh - T_ref).abs()
+                    - 1e-4 * T_ref.abs()).max())
+    if not (abs(v_sh - v_ref) <= 1e-5 * abs(v_ref) and sh_err <= 1e-6):
+        raise AssertionError(f"sharded grid gw: {v_sh} vs unsharded "
+                             f"{v_ref}, block excess over 1e-4 rel "
+                             f"{sh_err}")
+    legacy_paths["sharded_grid_gw"] = {
+        "world_size": 1, "backend": "nccl", "s": SHARDED_S,
+        "value": v_sh, "value_unsharded": v_ref, "wall_s": sh_wall}
+    del CxR, CyC, T_sh, T_ref, w_sh
+    print(json.dumps({"legacy_path": legacy_paths}))
+    torch.cuda.empty_cache()
+
     # -- 5. the grid main path ---------------------------------------------
     stamps.append(("5", time.perf_counter()))
     grid_problem = repro_torch.QuadraticProblem(
@@ -1915,6 +2145,150 @@ def main(parent: Path | None = None) -> int:
         "params_gib": sum(t.numel() * t.element_size()
                           for t in leaves(params)) / 2**30,
         "launches": lm_launches}}))
+
+    # -- 7b. the LM decode path ---------------------------------------------
+    stamps.append(("7b", time.perf_counter()))
+    from repro_torch.launch import serve as lm_serve
+    # reduced depth, float32: teacher-forced decode against the forward
+    short_params = short._cast_params(
+        {**params, "blocks": params["blocks"][:1]}, torch.float32, dev)
+    prompt = tokens[:, :DECODE_PROMPT]
+    reset_lm_counts()
+    fwd_logits = short.forward(short_params, prompt, act_dtype=torch.float32,
+                               use_flash=True)[0]
+    fwd_counts = lm_counts()
+    cache = short.init_cache(prompt.shape[0], DECODE_PROMPT,
+                             dtype=torch.float32, device=dev)
+    steps = []
+    for t in range(DECODE_PROMPT):
+        lg, cache = short.decode_step(short_params, prompt[:, t:t + 1], cache,
+                                      t, act_dtype=torch.float32)
+        steps.append(lg)
+    dec_logits = torch.cat(steps, dim=1)
+    fwd_max = float(fwd_logits.abs().max())
+    excess = float(((dec_logits - fwd_logits).abs()
+                    - DECODE_RTOL * fwd_logits.abs()).max())
+    dec_dist = float((dec_logits - fwd_logits).abs().max())
+    if fwd_counts != {"flash_attention": 1, "ssd_intra": want_short[
+            "ssd_intra"]} or excess > DECODE_ATOL \
+            or not bool(dec_logits.isfinite().all()):
+        raise AssertionError(f"decode vs forward: launches {fwd_counts}, "
+                             f"max |diff| {dec_dist}, excess over rtol "
+                             f"{DECODE_RTOL}: {excess} (atol {DECODE_ATOL})")
+    del short_params, cache, steps, dec_logits, fwd_logits
+    torch.cuda.empty_cache()
+
+    # full depth, bfloat16: generate with the reference's lm_main defaults
+    prompts = torch.randint(0, cfg.vocab_size, (DECODE_BATCH, DECODE_PROMPT),
+                            generator=lm_gen, device=dev)
+    def spec_bytes(tree):
+        if hasattr(tree, "dtype"):              # one cache tensor's spec
+            return math.prod(tree.shape) * torch.empty(
+                (), dtype=tree.dtype).element_size()
+        return sum(spec_bytes(t) for t in (
+            tree.values() if isinstance(tree, dict) else tree))
+
+    cache_bytes = spec_bytes(model.cache_spec(DECODE_BATCH,
+                                              DECODE_PROMPT + DECODE_NEW))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen_base = torch.cuda.memory_allocated()
+    finite = []                 # each decode step's logits finite
+    decode = model.decode_step
+
+    def checked_decode(*args, **kw):
+        lg, c = decode(*args, **kw)
+        finite.append(lg.isfinite().all())
+        return lg, c
+
+    model.decode_step = checked_decode
+    reset_lm_counts()
+    try:
+        t0 = time.perf_counter()
+        seqs = lm_serve.generate(model, params, prompts, DECODE_NEW,
+                                 act_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        gen_wall = time.perf_counter() - t0
+    finally:
+        del model.decode_step
+    gen_counts = lm_counts()
+    gen_peak_gib = (torch.cuda.max_memory_allocated() - gen_base) / 2**30
+    t0 = time.perf_counter()              # again, on warm cuBLAS plans
+    warm_seqs = lm_serve.generate(model, params, prompts, DECODE_NEW,
+                                  act_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    gen_warm_wall = time.perf_counter() - t0
+    new = seqs[:, DECODE_PROMPT:]
+    in_range = bool(((new >= 0) & (new < cfg.vocab_size)).all())
+    all_finite = bool(torch.stack(finite).all())
+    if tuple(seqs.shape) != (DECODE_BATCH, DECODE_PROMPT + DECODE_NEW) \
+            or not torch.equal(seqs[:, :DECODE_PROMPT], prompts) \
+            or tuple(warm_seqs.shape) != tuple(seqs.shape) \
+            or not in_range or not all_finite \
+            or len(finite) != DECODE_PROMPT + DECODE_NEW:
+        raise AssertionError(f"generate: shape {tuple(seqs.shape)}, tokens "
+                             f"in range {in_range}, logits finite "
+                             f"{all_finite} over {len(finite)} steps")
+
+    # gw_similarity at full depth in bfloat16: K6 in every Mamba2 layer of
+    # both forwards
+    per_forward = []
+    forward = model.forward
+
+    def counted_forward(*args, **kw):
+        before = lm_counts()["ssd_intra"]
+        out = forward(*args, **kw)
+        per_forward.append(lm_counts()["ssd_intra"] - before)
+        return out
+
+    model.forward = counted_forward
+    try:
+        reset_lm_counts()
+        t0 = time.perf_counter()
+        sim = float(lm_serve.gw_similarity(model, params, prompts,
+                                           prompts.flip(0),
+                                           act_dtype=torch.bfloat16))
+        torch.cuda.synchronize()
+        sim_wall = time.perf_counter() - t0
+    finally:
+        del model.forward
+    if per_forward != [want_lm["ssd_intra"]] * 2 or not math.isfinite(sim):
+        raise AssertionError(f"gw_similarity: K6 launches per forward "
+                             f"{per_forward} (expected "
+                             f"{want_lm['ssd_intra']} each), value {sim}")
+
+    # the CLI, on the card by default
+    cli_out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(cli_out):
+        lm_serve.main(["--mode", "lm", "--arch", "zamba2-7b", "--reduced",
+                       "--metric", "gw"])
+    cli_wall = time.perf_counter() - t0
+    if "GW(batch, reversed-batch)" not in cli_out.getvalue():
+        raise AssertionError(f"--mode lm: {cli_out.getvalue()!r}")
+    print(json.dumps({"lm_decode_path": {
+        "decode_vs_forward": {
+            "depth": "1 superblock + tail", "dtype": "float32",
+            "tokens": DECODE_PROMPT, "max_abs_diff": dec_dist,
+            "max_abs_forward_logit": fwd_max,
+            "bound": {"atol": DECODE_ATOL, "rtol": DECODE_RTOL},
+            "forward_launches": fwd_counts},
+        "generate": {
+            "batch": DECODE_BATCH, "prompt": DECODE_PROMPT,
+            "new_tokens": DECODE_NEW, "dtype": "bfloat16",
+            "wall_s": gen_wall, "warm_wall_s": gen_warm_wall,
+            "tokens_per_s": DECODE_BATCH * DECODE_NEW / gen_wall,
+            "warm_tokens_per_s": DECODE_BATCH * DECODE_NEW / gen_warm_wall,
+            "decode_steps": DECODE_PROMPT + DECODE_NEW,
+            "cache_bytes": cache_bytes,
+            "peak_memory_gib_above_start": gen_peak_gib,
+            "launches": gen_counts},
+        "gw_similarity": {"value": sim, "wall_s": sim_wall,
+                          "k6_launches_per_forward": per_forward},
+        "cli": {"wall_s": cli_wall,
+                "output": cli_out.getvalue().strip().splitlines()}}}))
+    del seqs, warm_seqs, prompts, finite
+    torch.cuda.empty_cache()
 
     # -- 8. kernels at their paths' shapes ----------------------------------
     stamps.append(("8", time.perf_counter()))
@@ -2194,6 +2568,17 @@ def main(parent: Path | None = None) -> int:
     t0 = time.perf_counter()
     quantized_cut()
     quantized_cut_wall = time.perf_counter() - t0
+    # one full-depth bf16 decode step of phase 7b's generate (B = 4), after
+    # a warm-up step on the same cache
+    dec_cache = model.init_cache(DECODE_BATCH, DECODE_PROMPT + DECODE_NEW,
+                                 device=dev)
+    dec_tok = torch.zeros((DECODE_BATCH, 1), dtype=torch.int64, device=dev)
+
+    def decode_one():
+        return model.decode_step(params, dec_tok, dec_cache,
+                                 DECODE_PROMPT)[0].sum().item()
+
+    decode_one()
     print(json.dumps({"profile": {
         "grid": profile_solve(torch, lambda: repro_torch.solve(
             grid_problem, grid_solver, support=grid_support).value.item()),
@@ -2208,7 +2593,8 @@ def main(parent: Path | None = None) -> int:
             **profile_solve(torch, quantized_cut, top=10),
             "unprofiled_wall_s": quantized_cut_wall},
         "zamba2_prefill": profile_solve(torch, lambda: model.prefill(
-            params, tokens, use_flash=True)[0].sum().item(), top=12)}}))
+            params, tokens, use_flash=True)[0].sum().item(), top=12),
+        "zamba2_decode_step": profile_solve(torch, decode_one, top=12)}}))
 
     stamps.append(("end", time.perf_counter()))
     print(json.dumps({"phase_wall_s": {

@@ -4,7 +4,7 @@ The port's own copy of the reference's ``configs/base.py`` (which imports
 no JAX, but the port imports nothing of the reference). Every ported
 architecture has a module ``repro_torch/configs/<id>.py`` exporting
 ``CONFIG`` (published widths) and ``reduced()`` (CPU test size). The other
-ids of ``ARCH_IDS`` are not ported yet (ROADMAP item 17) and raise.
+ids of ``ARCH_IDS`` are not ported yet (ROADMAP item 17b) and raise.
 """
 from __future__ import annotations
 
@@ -125,7 +125,7 @@ CLI_ALIASES = {
 }
 
 
-# the ids whose modules the port has; the rest wait for ROADMAP item 17
+# the ids whose modules the port has; the rest wait for ROADMAP item 17b
 PORTED_IDS = ("llama3_8b", "zamba2_7b")
 
 
@@ -135,7 +135,7 @@ def _module(name: str):
         raise ValueError(f"unknown architecture {name!r}")
     if mod_name not in PORTED_IDS:
         raise NotImplementedError(
-            f"architecture {name!r} is not ported yet (ROADMAP item 17); "
+            f"architecture {name!r} is not ported yet (ROADMAP item 17b); "
             f"ported: {PORTED_IDS}")
     return importlib.import_module(f"repro_torch.configs.{mod_name}")
 

@@ -12,7 +12,9 @@ matmuls (decomposable L) or a 4-D contraction (arbitrary L — the
 ``gw_cost`` kernel), and Sinkhorn runs on dense matrices.
 
 Duplicate sampled indices split the marginal mass among themselves
-(matching the COO segment-sum semantics).
+(matching the COO segment-sum semantics). ``grid_spar_gw`` is the legacy
+entry point, a deprecation shim over ``repro_torch.solve`` with
+``GridGWSolver`` as in ``core/spar_gw.py``.
 """
 from __future__ import annotations
 
@@ -53,6 +55,26 @@ def _dedup_marginal(idx, full_weight, n_total: int):
         0, idx, torch.ones(idx.shape[0], dtype=torch.float32,
                            device=idx.device))
     return flush_subnormal(full_weight[idx] / counts[idx])
+
+
+def grid_spar_gw(generator, a, b, Cx, Cy, s_r: int, s_c: int,
+                 loss: str = "l2", reg: str = "prox", epsilon: float = 1e-2,
+                 outer_iters: int = 20, inner_iters: int = 50,
+                 shrink: float = 0.0, use_kernel: bool = False,
+                 stable: bool = True, support=None, device=None):
+    """Grid-structured SPAR-GW (shim). Returns (gw_estimate, (R, C,
+    T_block)); ``support=(R, C)`` fixes the row and col sets."""
+    from repro_torch.api import GridGWSolver, solve
+    from repro_torch.core.spar_gw import _problem, _warn_deprecated
+    _warn_deprecated("grid_spar_gw")
+    solver = GridGWSolver(s_r=s_r, s_c=s_c, reg=reg, epsilon=epsilon,
+                          outer_iters=outer_iters, inner_iters=inner_iters,
+                          shrink=shrink, use_kernel=use_kernel, stable=stable)
+    out = solve(_problem(a, b, Cx, Cy, loss=loss), solver,
+                generator=generator, support=support, device=device,
+                validate=False)
+    c = out.coupling
+    return out.value, (c.rows, c.cols, c.block)
 
 
 def grid_spar_gw_differentiable(a, b, CxR, CyC, aR, bC, w, loss: str,

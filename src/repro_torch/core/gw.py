@@ -4,7 +4,10 @@
 solver and of the unbalanced SPAR-GW init: O(n²m + m²n) per call for
 decomposable ground losses (Peyré et al., 2016), a row-chunked O(m²n²)
 contraction for the others. The legacy Algorithm 1 entry points
-(``gw_dense``, ``egw``, ``pga_gw``, ``fgw_dense``) come with the shims.
+(``gw_dense``, ``egw``, ``pga_gw``, ``fgw_dense``) are deprecation shims
+over ``repro_torch.solve`` with ``DenseGWSolver``, as in
+``core/spar_gw.py``; ``device`` is where they run (the card unless
+``"cpu"`` is given).
 """
 from __future__ import annotations
 
@@ -70,3 +73,47 @@ def entropic_gw_value(Cx, Cy, T, loss: str, epsilon: float):
     ent = torch.sum(torch.where(Tf > 0, Tf * torch.log(
         torch.where(Tf > 0, Tf, torch.ones_like(Tf))), torch.zeros_like(Tf)))
     return gw_objective(Cx, Cy, T, loss) + epsilon * ent
+
+
+def gw_dense(a, b, Cx, Cy, loss: str = "l2", reg: str = "prox",
+             epsilon: float = 1e-2, outer_iters: int = 20,
+             inner_iters: int = 50, stable: bool = True, device=None):
+    """Algorithm 1 (shim): EGW (reg='ent') or PGA-GW (reg='prox').
+
+    ``stable=True`` runs the Sinkhorn projection in the log domain;
+    ``stable=False`` is the plain-domain algorithm as the paper writes it.
+    Returns (gw_value, T).
+    """
+    from repro_torch.api import DenseGWSolver, solve
+    from repro_torch.core.spar_gw import _problem, _warn_deprecated
+    _warn_deprecated("gw_dense")
+    solver = DenseGWSolver(reg=reg, epsilon=epsilon, outer_iters=outer_iters,
+                           inner_iters=inner_iters, stable=stable)
+    out = solve(_problem(a, b, Cx, Cy, loss=loss), solver, device=device,
+                validate=False)
+    return out.value, out.coupling
+
+
+def egw(a, b, Cx, Cy, **kw):
+    kw.setdefault("reg", "ent")
+    return gw_dense(a, b, Cx, Cy, **kw)
+
+
+def pga_gw(a, b, Cx, Cy, **kw):
+    kw.setdefault("reg", "prox")
+    return gw_dense(a, b, Cx, Cy, **kw)
+
+
+def fgw_dense(a, b, Cx, Cy, M, alpha: float = 0.6, loss: str = "l2",
+              reg: str = "prox", epsilon: float = 1e-2, outer_iters: int = 20,
+              inner_iters: int = 50, stable: bool = True, device=None):
+    """Dense fused GW (shim; appendix A baseline): C_fu = α L⊗T + (1-α) M.
+    Returns (fgw_value, T)."""
+    from repro_torch.api import DenseGWSolver, solve
+    from repro_torch.core.spar_gw import _problem, _warn_deprecated
+    _warn_deprecated("fgw_dense")
+    solver = DenseGWSolver(reg=reg, epsilon=epsilon, outer_iters=outer_iters,
+                           inner_iters=inner_iters, stable=stable)
+    problem = _problem(a, b, Cx, Cy, loss=loss, fused_penalty=alpha, M=M)
+    out = solve(problem, solver, device=device, validate=False)
+    return out.value, out.coupling

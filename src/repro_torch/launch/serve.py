@@ -1,16 +1,24 @@
-"""Serving entry point (counterpart of ``repro.launch.serve``, gw mode).
+"""Serving entry points (counterpart of ``repro.launch.serve``).
 
 ``--mode gw`` (the default) drives a synthetic catalog-matching workload
 through :class:`~repro_torch.serve.GWServer` — size-bucketed lane
 batching, the content-hash geometry cache, per-request health status —
 and prints each request's outcome and the server's metrics summary.
 
-``--mode lm`` (the reference's LM serving loop) is not ported: it needs
-``Model.decode_step`` and ``core/align.py`` (ROADMAP item 17).
+``--mode lm`` is the reference's LM serving loop: a prompt batch
+teacher-forced through decode steps on a zero cache, then greedy (or
+sampled) decoding (:func:`generate`), and with ``--metric gw`` the GW
+distance between the hidden geometries of the batch and the batch
+reversed (:func:`gw_similarity`, the paper's technique as a serving
+feature). Architectures outside ``configs.PORTED_IDS`` raise.
+
+Both run on the CUDA card unless ``--device`` says otherwise.
 
 Usage:
   python -m repro_torch.launch.serve --requests 16 --max-batch 8
   python -m repro_torch.launch.serve --device cpu --requests 4
+  python -m repro_torch.launch.serve --mode lm --arch zamba2-7b --reduced \
+      --batch 4 --prompt-len 32 --gen 16 --metric gw
 """
 from __future__ import annotations
 
@@ -19,6 +27,8 @@ import time
 
 import numpy as np
 import torch
+
+from repro_torch.kernels import dispatch
 
 
 def _demo_geometry(n: int, seed: int):
@@ -82,11 +92,100 @@ def gw_main(args) -> None:
             http_server.server_close()
 
 
+# ---------------------------------------------------------------------------
+# LM serving mode
+# ---------------------------------------------------------------------------
+
+def generate(model, params, prompts, max_new: int, act_dtype=torch.float32,
+             temperature: float = 0.0, generator=None, device=None):
+    """prompts: (B, S0) int. Greedy (or sampled) continuation; returns the
+    (B, S0 + max_new) int64 tokens.
+
+    Decode runs against a zero cache of length S0 + max_new in
+    ``act_dtype``: the prompt is teacher-forced through decode steps (as
+    the reference does), then each new token is the argmax of the last
+    logits, or with ``temperature > 0`` a draw from their softmax at that
+    temperature (``torch.multinomial`` on ``generator``). Like the
+    reference, the last token is decoded too.
+    """
+    dev = dispatch.resolve_device(device)
+    prompts = prompts.to(dev)
+    B, S0 = prompts.shape[0], prompts.shape[1]
+    total = S0 + max_new
+    cache = model.init_cache(B, total, dtype=act_dtype, device=dev)
+    logits = None
+    for t in range(S0):
+        logits, cache = model.decode_step(params, prompts[:, t:t + 1],
+                                          cache, t, act_dtype=act_dtype,
+                                          device=dev)
+    out = [prompts.long()]
+    for t in range(S0, total):
+        if temperature > 0:
+            probs = torch.softmax(logits[:, -1].float() / temperature, -1)
+            nxt = torch.multinomial(probs, 1, generator=generator)
+        else:
+            nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        out.append(nxt)
+        logits, cache = model.decode_step(params, nxt, cache, t,
+                                          act_dtype=act_dtype, device=dev)
+    return torch.cat(out, dim=1)
+
+
+def gw_similarity(model, params, batch_a, batch_b, s: int = 32,
+                  act_dtype=torch.float32, generator=None, draws=None,
+                  device=None):
+    """GW distance between the hidden geometries of two request batches:
+    ``Model.forward`` of each (through K6 in every Mamba2 layer on the
+    card), then :func:`~repro_torch.core.align.gw_alignment_loss` with
+    s_r = s_c = ``s``. Its draws come from ``generator`` (default: seed 0
+    on the hidden states' device, as the reference fixes ``PRNGKey(0)``)
+    or ``draws``."""
+    from repro_torch.core.align import gw_alignment_loss
+
+    _, h_a, _ = model.forward(params, batch_a, act_dtype=act_dtype,
+                              device=device)
+    _, h_b, _ = model.forward(params, batch_b, act_dtype=act_dtype,
+                              device=device)
+    if generator is None and draws is None:
+        generator = torch.Generator(device=h_a.device).manual_seed(0)
+    return gw_alignment_loss(generator, h_a, h_b, s_r=s, s_c=s, draws=draws)
+
+
+def lm_main(args) -> None:
+    """Random weights (seed 0) and random prompts (seed 7), generate, and
+    optionally the GW similarity of the batch and the batch reversed."""
+    from repro_torch.configs import base as cb
+    from repro_torch.models import Model
+
+    cfg = cb.get_reduced(args.arch) if args.reduced else cb.get_arch(
+        args.arch)
+    dev = dispatch.resolve_device(args.device)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(7), device=dev)
+    t0 = time.time()
+    seqs = generate(model, params, prompts, args.gen, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.time() - t0
+    print(f"generated {tuple(seqs.shape)} in {dt:.2f}s "
+          f"({args.batch * args.gen / dt:.1f} tok/s) on {dev}")
+    if args.metric == "gw":
+        sim = gw_similarity(model, params, prompts, prompts.flip(0),
+                            device=dev)
+        print(f"GW(batch, reversed-batch) = {float(sim):.5f}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--mode", choices=("gw", "lm"), default="gw",
-                    help="gw: GW solve server demo (default); lm: the "
-                         "reference's LM loop (not ported)")
+                    help="gw: GW solve server demo (default); lm: batched "
+                         "LM generation loop")
+    ap.add_argument("--device", default=None,
+                    help="where to run (default: the CUDA card)")
     gw = ap.add_argument_group("gw mode")
     gw.add_argument("--requests", type=int, default=16)
     gw.add_argument("--solver", default="dense_gw")
@@ -97,14 +196,20 @@ def main(argv=None):
     gw.add_argument("--metrics-port", type=int, default=0,
                     help="serve the process metrics registry as Prometheus "
                          "text on this port (0 = off)")
-    gw.add_argument("--device", default=None,
-                    help="where to solve (default: the CUDA card)")
+    lm = ap.add_argument_group("lm mode")
+    lm.add_argument("--arch", default=None)
+    lm.add_argument("--reduced", action="store_true")
+    lm.add_argument("--batch", type=int, default=4)
+    lm.add_argument("--prompt-len", type=int, default=32)
+    lm.add_argument("--gen", type=int, default=16)
+    lm.add_argument("--metric", choices=("none", "gw"), default="none")
     args = ap.parse_args(argv)
     if args.mode == "lm":
-        raise NotImplementedError(
-            "--mode lm is not ported: it needs Model.decode_step and "
-            "core/align.py (ROADMAP item 17)")
-    gw_main(args)
+        if args.arch is None:
+            ap.error("--mode lm requires --arch")
+        lm_main(args)
+    else:
+        gw_main(args)
 
 
 if __name__ == "__main__":

@@ -9,11 +9,12 @@ Python loop, as the reference's ``unroll_layers`` path does, and the
 caches come back stacked over superblocks as the scan returns them.
 ``sharding_ctx`` constraints are identities on one card and are left out.
 
-Entry points: ``init``, ``forward`` (returns logits, final hidden, aux) and
-``prefill`` (last-position logits and the fresh caches). They run on the
-CUDA card unless ``device="cpu"`` is given, and raise without a card.
-``decode_step``, ``init_cache``, MLA and the ``moe``, ``xattn``,
-``mlstm``, ``slstm`` kinds wait for ROADMAP item 17.
+Entry points: ``init``, ``forward`` (returns logits, final hidden, aux),
+``prefill`` (last-position logits and the fresh caches), ``init_cache``
+(zero caches) and ``decode_step`` (one token against the caches, which it
+updates in place). They run on the CUDA card unless ``device="cpu"`` is
+given, and raise without a card. MLA and the ``moe``, ``xattn``,
+``mlstm``, ``slstm`` kinds wait for ROADMAP item 17b.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ from repro_torch.models.layers import (
 from repro_torch.models.module import Builder
 
 PORTED_KINDS = ("attn", "mamba2")
-_LATER = "is not ported yet (ROADMAP item 17)"
+_LATER = "is not ported yet (ROADMAP item 17b)"
 
 
 def _check_ported(cfg: ArchConfig):
@@ -64,21 +65,32 @@ def block_params(b: Builder, cfg: ArchConfig, kind: str):
 
 
 def block_apply(p, cfg: ArchConfig, kind: str, x, positions, use_flash,
-                use_kernel):
-    """Returns (x, new_cache). The ported kinds add no auxiliary loss."""
+                use_kernel, cache=None, cache_index=None):
+    """Returns (x, new_cache). The ported kinds add no auxiliary loss.
+    ``cache`` is the block's decode cache (None for train and prefill)."""
     eps = cfg.norm_eps
     if kind == "attn":
         h, new_cache = attn.gqa_attention(
             p["attn"], cfg, rmsnorm(p["n1"], x, eps), positions,
-            use_flash=use_flash, use_kernel=use_kernel)
+            cache=cache, cache_index=cache_index, use_flash=use_flash,
+            use_kernel=use_kernel)
         x = x + h.to(x.dtype)
         x = x + mlp(p["mlp"], rmsnorm(p["n2"], x, eps)).to(x.dtype)
         return x, new_cache
     if kind == "mamba2":
         h, new_state = ssm.mamba2_block(p["mamba"], cfg,
                                         rmsnorm(p["n1"], x, eps),
-                                        use_kernel=use_kernel)
+                                        state=cache, use_kernel=use_kernel)
         return x + h.to(x.dtype), new_state
+    raise NotImplementedError(f"block kind {kind!r} {_LATER}")
+
+
+def block_cache_spec(cfg: ArchConfig, kind: str, batch: int, cache_len: int,
+                     dtype):
+    if kind == "attn":
+        return attn.gqa_cache_spec(cfg, batch, cache_len, dtype)
+    if kind == "mamba2":
+        return ssm.mamba2_state_spec(cfg, batch, dtype)
     raise NotImplementedError(f"block kind {kind!r} {_LATER}")
 
 
@@ -99,18 +111,21 @@ def shared_block_params(b: Builder, cfg: ArchConfig):
 
 
 def superblock_apply(p, shared_p, cfg: ArchConfig, x, positions, use_flash,
-                     use_kernel):
+                     use_kernel, caches=None, shared_cache=None,
+                     cache_index=None):
     """Returns (x, new_caches, new_shared_cache)."""
     new_caches = []
     for i, kind in enumerate(cfg.block_pattern):
+        c = None if caches is None else caches[i]
         x, nc = block_apply(p[f"b{i}"], cfg, kind, x, positions, use_flash,
-                            use_kernel)
+                            use_kernel, c, cache_index)
         new_caches.append(nc)
     new_shared = None
     if shared_p is not None:
         h, new_shared = attn.gqa_attention(
             shared_p["attn"], cfg, rmsnorm(shared_p["n1"], x, cfg.norm_eps),
-            positions, use_flash=use_flash, use_kernel=use_kernel)
+            positions, cache=shared_cache, cache_index=cache_index,
+            use_flash=use_flash, use_kernel=use_kernel)
         x = x + h.to(x.dtype)
         x = x + mlp(shared_p["mlp"],
                     rmsnorm(shared_p["n2"], x, cfg.norm_eps)).to(x.dtype)
@@ -123,6 +138,30 @@ def _map_tensors(fn, tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_map_tensors(fn, val) for val in tree)
     return fn(tree)
+
+
+def _stack_specs(tree, n: int):
+    """A cache spec with a leading axis of ``n`` on every tensor."""
+    if isinstance(tree, attn.TensorSpec):
+        return attn.TensorSpec((n,) + tuple(tree.shape), tree.dtype)
+    return type(tree)(_stack_specs(t, n) for t in tree)
+
+
+def _zeros(tree, device):
+    if isinstance(tree, attn.TensorSpec):
+        return torch.zeros(tree.shape, dtype=tree.dtype, device=device)
+    return type(tree)(_zeros(t, device) for t in tree)
+
+
+def _write(dst_tree, src_tree):
+    """Copy each tensor of ``src_tree`` into ``dst_tree`` where they are
+    not the same tensor (the attention caches are written in place)."""
+    if isinstance(dst_tree, torch.Tensor):
+        if src_tree is not dst_tree:
+            dst_tree.copy_(src_tree)
+        return
+    for d, s_ in zip(dst_tree, src_tree):
+        _write(d, s_)
 
 
 def _stack_trees(trees):
@@ -167,11 +206,55 @@ class Model:
         return self._build(Builder(generator, dispatch.resolve_device(device),
                                    dtype))
 
-    def decode_step(self, *args, **kwargs):
-        raise NotImplementedError(f"decode_step {_LATER}")
+    # -- caches -------------------------------------------------------------
 
-    def init_cache(self, *args, **kwargs):
-        raise NotImplementedError(f"init_cache {_LATER}")
+    def cache_spec(self, batch: int, cache_len: int, dtype=torch.bfloat16):
+        """The caches' shapes and dtypes: ``{"blocks": per pattern position,
+        stacked over superblocks, "tail": per tail block, "shared": the
+        shared block's (k, v) stacked over its invocations}``."""
+        cfg = self.cfg
+        n_sb = cfg.resolved_superblocks
+        sb = tuple(block_cache_spec(cfg, k, batch, cache_len, dtype)
+                   for k in cfg.block_pattern)
+        spec: Dict[str, Any] = {"blocks": _stack_specs(sb, n_sb)}
+        if cfg.tail_blocks:
+            spec["tail"] = tuple(
+                block_cache_spec(cfg, k, batch, cache_len, dtype)
+                for k in cfg.tail_blocks)
+        if cfg.shared_block_every:
+            spec["shared"] = _stack_specs(
+                attn.gqa_cache_spec(cfg, batch, cache_len, dtype), n_sb)
+        return spec
+
+    def init_cache(self, batch: int, cache_len: int, dtype=torch.bfloat16,
+                   device=None):
+        """Zero caches of :meth:`cache_spec` on ``device`` (the card unless
+        given). The ported kinds have no state that starts elsewhere than
+        0 (the reference starts only LSTM stabilizers at -1e30)."""
+        dev = dispatch.resolve_device(device)
+        return {key: _zeros(val, dev) for key, val in
+                self.cache_spec(batch, cache_len, dtype).items()}
+
+    def decode_step(self, params, tokens, cache, index: int,
+                    act_dtype=torch.bfloat16, device=None):
+        """One decode step. tokens: (B, 1); ``index``: the absolute
+        position, the caches' write offset. Returns (logits (B, 1, V),
+        cache): the caches of :meth:`init_cache` (or :meth:`prefill`'s,
+        padded by the caller) are updated in place and come back as the
+        same tensors. Attention runs the scores path, Mamba2 its
+        single-step recurrence; no kernel is launched, as in the
+        reference."""
+        dev = dispatch.resolve_device(device)
+        tokens = tokens.to(dev)
+        B = tokens.shape[0]
+        params = self._cast_params(params, act_dtype, dev)
+        positions = torch.full((B, 1), int(index), dtype=torch.int64,
+                               device=dev)
+        x = embed(params["embed"], tokens).to(act_dtype)
+        x, _ = self._stack(params, x, positions, False, True, True,
+                           caches=cache, cache_index=int(index))
+        x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
+        return self._logits(params, x), cache
 
     # -- embedding / head ----------------------------------------------------
 
@@ -192,30 +275,45 @@ class Model:
     # -- core stack ----------------------------------------------------------
 
     def _stack(self, params, x, positions, use_flash, use_kernel,
-               want_cache):
+               want_cache, caches=None, cache_index=None):
+        """The superblocks, then the tail. With ``caches`` (decode) each
+        block reads its slice of the stacked caches and the new states are
+        written back into them; otherwise the fresh caches are stacked
+        (``want_cache``)."""
         cfg = self.cfg
         shared_p = params.get("shared")
         sb_caches, sh_caches = [], []
-        for blk_p in params["blocks"]:
+        for i, blk_p in enumerate(params["blocks"]):
+            sb_in = sh_in = None
+            if caches is not None:
+                sb_in = _map_tensors(lambda t: t[i], caches["blocks"])
+                if shared_p is not None:
+                    sh_in = _map_tensors(lambda t: t[i], caches["shared"])
             x, new_sb, new_sh = superblock_apply(
-                blk_p, shared_p, cfg, x, positions, use_flash, use_kernel)
-            if want_cache:
+                blk_p, shared_p, cfg, x, positions, use_flash, use_kernel,
+                sb_in, sh_in, cache_index)
+            if caches is not None:
+                _write(sb_in, new_sb)
+            elif want_cache:
                 sb_caches.append(new_sb)
                 sh_caches.append(new_sh)
 
         new_tail = []
         for i, kind in enumerate(cfg.tail_blocks):
+            c = None if caches is None else caches["tail"][i]
             x, nc = block_apply(params["tail"][i], cfg, kind, x, positions,
-                                use_flash, use_kernel)
+                                use_flash, use_kernel, c, cache_index)
+            if caches is not None:
+                _write(c, nc)
             new_tail.append(nc)
 
-        cache_out = None
-        if want_cache:
-            cache_out = {"blocks": _stack_trees(sb_caches)}
-            if shared_p is not None:
-                cache_out["shared"] = _stack_trees(sh_caches)
-            if cfg.tail_blocks:
-                cache_out["tail"] = tuple(new_tail)
+        if caches is not None or not want_cache:
+            return x, caches
+        cache_out = {"blocks": _stack_trees(sb_caches)}
+        if shared_p is not None:
+            cache_out["shared"] = _stack_trees(sh_caches)
+        if cfg.tail_blocks:
+            cache_out["tail"] = tuple(new_tail)
         return x, cache_out
 
     def _run(self, params, tokens, act_dtype, use_flash, use_kernel, device,

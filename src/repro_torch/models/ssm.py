@@ -3,9 +3,10 @@
 Single B/C group and no short convolution, as in the reference. The
 intra-chunk block ``y_intra`` runs through the SSD kernel (K6) on
 (batch·chunks, k, H, P) views; the per-chunk input states, the sequential
-scan over chunks and ``y_inter`` stay torch ops. mLSTM, sLSTM, the decode
-recurrence and ``split_proj`` (a tensor-parallel lever; the port runs on one
-card) are not ported yet (ROADMAP item 17).
+scan over chunks and ``y_inter`` stay torch ops. Decode (S = 1 with a
+state) runs the single-step recurrence. mLSTM, sLSTM and ``split_proj`` (a
+tensor-parallel lever; the port runs on one card) are not ported yet
+(ROADMAP items 17b and 17d).
 
 jnp promotes bfloat16 with float32 inside ``einsum`` and ``@``; torch
 refuses mixed dtypes there, so B and C are cast to float32 where the
@@ -20,6 +21,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssd.ops import ssd_intra
 from repro_torch.kernels.ssd.ref import ssd_intra_ref
+from repro_torch.models.attention import TensorSpec
 from repro_torch.models.module import Builder
 
 
@@ -87,11 +89,10 @@ def _ssd_chunked(xh, dt, a_log, Bm, Cm, chunk: int, use_kernel: bool = True):
 
 
 def mamba2_block(p, cfg: ArchConfig, x, state=None, use_kernel: bool = True):
-    """x: (B,S,D), train and prefill (``state=None``). Returns
-    (out, final state (B,H,N,P) in x's dtype)."""
-    if state is not None:
-        raise NotImplementedError("the Mamba2 decode recurrence is not "
-                                  "ported yet (ROADMAP item 17)")
+    """x: (B,S,D). ``state=None`` for train and prefill (the chunked SSD);
+    a state (B,H,N,P) for decode (S == 1, the single-step recurrence).
+    Returns (out, new state); the prefill's comes in x's dtype, the
+    decode's in the state's own."""
     B, S, D = x.shape
     d_in = cfg.ssm_expand * D
     H, N = cfg.ssm_heads, cfg.ssm_state
@@ -101,12 +102,29 @@ def mamba2_block(p, cfg: ArchConfig, x, state=None, use_kernel: bool = True):
     dt = F.softplus(dt.float() + p["dt_bias"])               # (B,S,H)
     xh = xi.reshape(B, S, H, P)
 
-    y, new_state = _ssd_chunked(xh, dt, p["a_log"], Bm, Cm,
-                                min(cfg.ssm_chunk, S), use_kernel)
-    new_state = new_state.to(xh.dtype)
+    if state is None:
+        y, new_state = _ssd_chunked(xh, dt, p["a_log"], Bm, Cm,
+                                    min(cfg.ssm_chunk, S), use_kernel)
+        new_state = new_state.to(xh.dtype)
+    else:
+        # single-step recurrence: h <- exp(dt·A) h + dt·B ⊗ x, y = C·h
+        A = -torch.exp(p["a_log"].float())
+        dA = torch.exp(dt[:, 0] * A)                         # (B,H)
+        dBx = torch.einsum("bn,bh,bhp->bhnp", Bm[:, 0].float(), dt[:, 0],
+                           xh[:, 0].float())
+        new_state = (state * dA[:, :, None, None] + dBx).to(state.dtype)
+        ct = torch.promote_types(Cm.dtype, new_state.dtype)
+        y = torch.einsum("bn,bhnp->bhp", Cm[:, 0].to(ct),
+                         new_state.to(ct))[:, None]
     y = y + xh * p["skip_d"][None, None, :, None]
     y = y.reshape(B, S, d_in) * F.silu(z)
     y32 = y.float()
     y = (y32 * torch.rsqrt((y32 * y32).mean(dim=-1, keepdim=True) + 1e-6)
          ).to(x.dtype) * p["norm"]
     return y @ p["out_proj"], new_state
+
+
+def mamba2_state_spec(cfg: ArchConfig, batch: int, dtype):
+    d_in = cfg.ssm_expand * cfg.d_model
+    P = d_in // cfg.ssm_heads
+    return TensorSpec((batch, cfg.ssm_heads, cfg.ssm_state, P), dtype)

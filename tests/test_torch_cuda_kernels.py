@@ -42,7 +42,10 @@ Tolerances, kernel against plain version:
   |a||b| and round once per 8 terms and split term (3/8 of a rounding a
   term), which fits the same bound.
 * the reduced models on the card against the CPU path: max error 1e-4 of
-  the largest logit, as in the CPU parity tests of the whole stack.
+  the largest logit, as in the CPU parity tests of the whole stack; the
+  same for their decode steps.
+* the legacy ``spar_gw`` shim: bit for bit its ``repro_torch.solve``
+  call, under torch's deterministic algorithms.
 """
 import shutil
 import subprocess
@@ -723,3 +726,91 @@ def test_reduced_model_on_card_matches_cpu(dev, name):
     logits, cache = model.prefill(params, toks, use_flash=True, device=dev)
     assert torch.isfinite(logits).all() and logits.shape == (
         2, 1, cfg.vocab_size)
+
+
+@pytest.mark.parametrize("impl", ["auto", "pallas"])
+def test_spar_gw_shim_is_its_solve_bitwise_on_card(dev, impl):
+    """The legacy ``spar_gw`` shim on the card is bit for bit
+    ``repro_torch.solve`` on the same generator state, with torch's
+    deterministic algorithms on (the sparse Sinkhorn's ``index_add_``
+    otherwise sums with atomics, in no fixed order); K1 (auto) or K2
+    (pallas) launches once a step and once for the value."""
+    import warnings
+
+    from repro_torch.core import spar_gw as spar_shim
+
+    Cx, a, Cy, b = (np.asarray(x) for x in _moon_pair(300))
+    n = a.shape[0]
+    problem = interop.to_problem(Cx, a, Cy, b, device=dev)
+    solver = SparGWSolver(s=16 * n, cost_impl=impl)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        spar_cost.reset_launch_counts()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            value, (rows, cols, vals) = spar_shim(
+                torch.Generator(dev).manual_seed(0), a, b, Cx, Cy, s=16 * n,
+                cost_impl=impl)
+        torch.cuda.synchronize()
+        launched = dict(spar_cost.LAUNCHES)
+        out = repro_torch.solve(problem, solver,
+                                generator=torch.Generator(dev).manual_seed(0))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    name = "spar_matvec" if impl == "auto" else "spar_cost_fused"
+    assert launched[name] == solver.outer_iters + 1
+    assert value.is_cuda and torch.equal(value, out.value)
+    c = out.coupling
+    assert torch.equal(rows, c.rows) and torch.equal(cols, c.cols)
+    assert torch.equal(vals, c.vals)
+
+
+def _moon_pair(n):
+    rng = np.random.default_rng(0)
+    x, y = rng.standard_normal((n, 2)), rng.standard_normal((n, 2)) * 1.2
+    Cx = np.sqrt(((x[:, None] - x[None]) ** 2).sum(-1)).astype(np.float32)
+    Cy = np.sqrt(((y[:, None] - y[None]) ** 2).sum(-1)).astype(np.float32)
+    a = np.full(n, 1 / n, np.float32)
+    return Cx, a, Cy, a.copy()
+
+
+@pytest.mark.parametrize("name", ["zamba2_7b", "llama3_8b"])
+def test_decode_step_on_card_matches_cpu(dev, name):
+    """Teacher-forced fp32 decode steps on the card against the CPU on the
+    same weights, within 1e-4 of the largest logit; the caches too."""
+    cfg = get_reduced(name)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 8)))
+    caches = {d: model.init_cache(2, 8, dtype=torch.float32, device=d)
+              for d in ("cpu", dev)}
+    for t in range(8):
+        got, _ = model.decode_step(params, toks[:, t:t + 1], caches[dev], t,
+                                   act_dtype=torch.float32, device=dev)
+        want, _ = model.decode_step(params, toks[:, t:t + 1],
+                                    caches["cpu"], t,
+                                    act_dtype=torch.float32, device="cpu")
+        assert got.is_cuda
+        assert (got.cpu() - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_autotune_times_gw_cost_on_card(dev):
+    """``dispatch.autotune`` over K3's thread counts on the card: CUDA
+    events time each, 512 (which the wrapper refuses before launching) is
+    skipped, and the winner feeds ``block_size``."""
+    from repro_torch.kernels import dispatch
+
+    A, B, T = _rand((181, 181), 0, dev), _rand((181, 181), 1, dev), \
+        _rand((181, 181), 2, dev)
+    dispatch.clear_autotune_cache()
+    try:
+        best = dispatch.autotune(
+            "gw_cost", (512, 32, 64, 128, 256),
+            lambda b: gw_cost.gw_cost_cuda(A, B, T, "l1", threads=b))
+        rec = dispatch.autotune_records()[-1]
+        assert best in gw_cost.THREADS and rec["backend"] == "cuda"
+        assert sorted(rec["timings_s"]) == ["128", "256", "32", "64"]
+        assert dispatch.block_size("gw_cost") == best
+    finally:
+        dispatch.clear_autotune_cache()

@@ -33,12 +33,15 @@ import repro
 import repro_torch
 from repro.core import gw as jgw
 from repro_torch.api import interop
-from repro_torch.core import gw, spar_ugw
+from repro_torch.core import gw
 from test_torch_solve import ERR_ATOL, VALS_ATOL, VALS_RTOL, VALUE_RTOL, _moon
 from test_torch_solve import _one_torch_thread  # noqa: F401 (autouse)
 
 # the module (repro.core re-exports a function of the same name)
 jugw = importlib.import_module("repro.core.spar_ugw")
+# the module: repro_torch.core exports the function spar_ugw, as
+# repro.core does
+spar_ugw = importlib.import_module("repro_torch.core.spar_ugw")
 
 COST_RTOL, COST_ATOL_REL = 1e-5, 1e-6
 

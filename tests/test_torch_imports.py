@@ -18,7 +18,8 @@ from repro_torch.kernels import dispatch
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
-# the multiscale, health, diff, optim, obs, serve and launch modules:
+# the multiscale, health, diff, optim, obs, serve, launch and legacy core
+# modules:
 # scanned like every other file, and required to be there
 NEW_MODULES = ("multiscale/anchors.py", "multiscale/compress.py",
                "multiscale/refine.py", "multiscale/solver.py",
@@ -29,7 +30,9 @@ NEW_MODULES = ("multiscale/anchors.py", "multiscale/compress.py",
                "obs/trace.py", "obs/report.py", "obs/http.py",
                "serve/__init__.py", "serve/batching.py", "serve/cache.py",
                "serve/lanes.py", "serve/metrics.py", "serve/server.py",
-               "launch/__init__.py", "launch/serve.py")
+               "launch/__init__.py", "launch/serve.py",
+               "core/spar_gw.py", "core/emd.py", "core/sagrow.py",
+               "core/align.py", "core/sharded_gw.py")
 
 
 def _port_files():

@@ -100,12 +100,13 @@ def test_unported_architectures_raise():
 
 
 def test_unported_model_paths_raise():
+    # decode_step and init_cache are ported for attn and mamba2 (held in
+    # tests/test_torch_decode.py); the caches of other kinds still raise
+    from repro_torch.models import model_zoo
     cfg = configs.get_reduced("zamba2_7b")
-    model = Model(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        model.decode_step(None, None, None, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        model.init_cache(2, 16)
+    for kind in ("moe", "mlstm", "slstm", "xattn"):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
+            model_zoo.block_cache_spec(cfg, kind, 2, 16, torch.float32)
     for bad in (configs.scale_down(cfg, block_pattern=("moe",)),
                 configs.scale_down(cfg, tail_blocks=("mlstm",)),
                 configs.scale_down(cfg, attn_type="mla")):

@@ -22,12 +22,14 @@ import torch
 from repro.api import solvers as jsolvers
 from repro.kernels.spar_cost.ops import make_spar_cost_fn as j_cost_fn
 from repro_torch.api import solvers
-from repro_torch.core import sinkhorn as sk
 from repro_torch.core.utils import FLT_MIN
 from repro_torch.kernels.spar_cost.ops import make_spar_cost_fn
 
 # the module (repro.core re-exports a function of the same name)
 jsk = importlib.import_module("repro.core.sinkhorn")
+# the module: repro_torch.core exports the function sinkhorn, as
+# repro.core does
+sk = importlib.import_module("repro_torch.core.sinkhorn")
 
 RTOL, ATOL = 1e-5, 1e-7
 

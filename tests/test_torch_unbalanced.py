@@ -38,13 +38,15 @@ from repro.core import sampling as jsampling
 from repro.core import utils as jutils
 from repro_torch.api import interop
 from repro_torch.core import sampling
-from repro_torch.core import sinkhorn as sk
 from repro_torch.core import utils
 from test_torch_solve import _assert_parity, _moon
 from test_torch_solve import _one_torch_thread  # noqa: F401 (autouse)
 
 # the module (repro.core re-exports a function of the same name)
 jsk = importlib.import_module("repro.core.sinkhorn")
+# the module: repro_torch.core exports the function sinkhorn, as
+# repro.core does
+sk = importlib.import_module("repro_torch.core.sinkhorn")
 
 KL_RTOL = 1e-5
 RTOL, ATOL = 1e-5, 1e-7
