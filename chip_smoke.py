@@ -1695,9 +1695,9 @@ def main(parent: Path | None = None) -> int:
         return x.shape == y.shape and bool(torch.equal(x, y))
 
     def legacy_call(fn, *args, **kw):
-        """a shim under torch's deterministic algorithms (the sparse
-        Sinkhorn's index_add_ otherwise sums with atomics in no fixed
-        order), without its deprecation warning"""
+        """a shim without its deprecation warning (the caller runs it
+        under torch's deterministic algorithms: the sparse Sinkhorn's
+        index_add_ otherwise sums with atomics in no fixed order)"""
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             return fn(*args, **kw)

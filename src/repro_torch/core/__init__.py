@@ -1,7 +1,14 @@
 """Core numerics of the port: ground costs, sampling, Sinkhorn, the legacy
 entry points (deprecation shims over ``repro_torch.solve``), EMD-GW,
 SaGroW, the GW alignment loss and the sharded grid solver. Exports the
-names ``repro.core`` exports."""
+names ``repro.core`` exports.
+
+Two of those names are functions named as their modules are: ``sinkhorn``
+and ``sagrow``. Here they shadow the submodules, so
+``from repro_torch.core import sinkhorn`` and even
+``import repro_torch.core.sinkhorn as m`` give the function. Get such a
+module by its full path from ``importlib.import_module`` (or
+``sys.modules``)."""
 from repro_torch.core.align import gw_alignment_loss
 from repro_torch.core.grid_gw import grid_cost, grid_spar_gw
 from repro_torch.core.gw import (

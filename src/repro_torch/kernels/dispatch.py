@@ -1,5 +1,4 @@
-"""Call-time device resolution, block sizing, memory budgets, padding
-helpers and the micro-autotune cache.
+"""Call-time device resolution, block sizing and memory budgets.
 
 The PyTorch counterpart of ``repro.kernels.dispatch``. Two rules carry
 over:
@@ -9,24 +8,22 @@ over:
    else the CUDA card. With no card and no explicit device it raises; it
    never falls back to the CPU silently.
 2. **One knob surface.** Block sizes resolve as explicit argument >
-   ``REPRO_BLOCK_<FAMILY>`` env var > autotune cache (:func:`autotune`) >
-   registry default, and the memory budgets come from one place.
+   ``REPRO_BLOCK_<FAMILY>`` env var > registry default, and the memory
+   budget comes from one place.
 
-No kernel of the port pads its inputs (K1-K6 mask their ragged edges);
-:func:`pad_to_multiple`, :func:`pad_dim` and :func:`unpad` are kept for
-callers of the reference's API.
+The reference's ``vmem_budget`` has no counterpart: no kernel here reads
+an on-chip budget (K4 picks its route from the card's own numbers,
+``kernels/sinkhorn/sinkhorn.sinkhorn_route``). Its padding helpers and
+autotune cache are not ported: no kernel here pads (K1-K6 mask their
+ragged edges) and no caller tunes a block size.
 """
 from __future__ import annotations
 
-import json
 import os
-import time
 from dataclasses import dataclass
-from pathlib import Path
-from typing import Callable, Iterable, Optional
+from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 
 def resolve_device(device=None) -> torch.device:
@@ -73,17 +70,6 @@ def _env_bytes(name: str, default: int) -> int:
     return int(float(raw))
 
 
-def vmem_budget() -> int:
-    """The reference's on-chip budget for VMEM-resident operands
-    (``REPRO_VMEM_BUDGET``, default 8 MiB), kept for its callers.
-
-    No kernel of the port consults it: K4 picks its route from the card's
-    own numbers (``kernels/sinkhorn/sinkhorn.sinkhorn_route``: shared
-    memory a block, SM count, cluster size).
-    """
-    return _env_bytes("REPRO_VMEM_BUDGET", 8 * 2**20)
-
-
 def materialize_budget() -> int:
     """Device-memory budget for materializing the (s, s) spar_cost loss matrix.
 
@@ -117,10 +103,9 @@ def block_size(family: str, override: Optional[int] = None,
                cap: Optional[int] = None) -> int:
     """Resolve the block size for a kernel family.
 
-    Priority: ``override`` arg > ``REPRO_BLOCK_<FAMILY>`` env > autotune
-    cache (filled by :func:`autotune`) > registry default (128 for an
-    unregistered family). ``cap`` clamps from above while keeping the
-    result >= 1.
+    Priority: ``override`` arg > ``REPRO_BLOCK_<FAMILY>`` env > registry
+    default (128 for an unregistered family). ``cap`` clamps from above
+    while keeping the result >= 1.
     """
     bs = override
     if bs is None:
@@ -128,176 +113,8 @@ def block_size(family: str, override: Optional[int] = None,
         if env:
             bs = int(env)
     if bs is None:
-        bs = _AUTOTUNE_CACHE.get(family)
-    if bs is None:
         fam = _REGISTRY.get(family)
         bs = fam.default_block if fam is not None else 128
     if cap is not None:
         bs = min(bs, cap)
     return max(int(bs), 1)
-
-
-# ---------------------------------------------------------------------------
-# Padding helpers
-# ---------------------------------------------------------------------------
-
-def pad_to_multiple(x, mults):
-    """Zero-pad each dim of ``x`` up to a multiple of ``mults[i]``.
-
-    Returns ``(padded, original_shape)``; no copy when already aligned.
-    Slice back with :func:`unpad`.
-    """
-    pads = [(-x.shape[i]) % mults[i] for i in range(x.ndim)]
-    if not any(pads):
-        return x, tuple(x.shape)
-    # F.pad takes (before, after) pairs from the last dim backwards
-    widths = [w for p in reversed(pads) for w in (0, p)]
-    return F.pad(x, widths), tuple(x.shape)
-
-
-def pad_dim(x, mult: int, axis: int = 0, value=0):
-    """Pad one axis of ``x`` up to a multiple of ``mult`` with ``value``."""
-    pad = (-x.shape[axis]) % mult
-    if pad == 0:
-        return x
-    fill_shape = list(x.shape)
-    fill_shape[axis] = pad
-    fill = torch.full(fill_shape, value, dtype=x.dtype, device=x.device)
-    return torch.cat([x, fill], dim=axis)
-
-
-def unpad(x, shape):
-    """Slice ``x`` back to ``shape`` (inverse of :func:`pad_to_multiple`)."""
-    if tuple(x.shape) == tuple(shape):
-        return x
-    return x[tuple(slice(0, d) for d in shape)]
-
-
-# ---------------------------------------------------------------------------
-# Micro-autotune
-# ---------------------------------------------------------------------------
-
-class CandidateRefused(ValueError):
-    """A wrapper refuses a block size before it launches anything (a
-    thread count the kernel does not take, or more shared memory than the
-    card has). :func:`autotune` skips such a candidate, and only such."""
-
-
-_AUTOTUNE_CACHE: dict[str, int] = {}
-_AUTOTUNE_RECORDS: list[dict] = []
-
-
-def _on_card(out) -> bool:
-    if isinstance(out, torch.Tensor):
-        return out.is_cuda
-    if isinstance(out, (list, tuple)):
-        return any(_on_card(x) for x in out)
-    return False
-
-
-def _time_candidate(bench_fn, cand: int, reps: int) -> tuple:
-    """Seconds per call of ``bench_fn(cand)`` after one warm call, and the
-    backend it ran on: CUDA events on the card's current stream where the
-    result lies on the card, the host clock otherwise."""
-    out = bench_fn(cand)                                  # warm
-    if _on_card(out):
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            bench_fn(cand)
-        stop.record()
-        stop.synchronize()
-        return start.elapsed_time(stop) / 1e3 / reps, "cuda"
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        bench_fn(cand)
-    return (time.perf_counter() - t0) / reps, "cpu"
-
-
-def autotune(family: str, candidates: Iterable[int],
-             bench_fn: Callable[[int], object], reps: int = 3,
-             flops_per_call: Optional[float] = None,
-             bytes_per_call: Optional[float] = None) -> Optional[int]:
-    """Time ``bench_fn(block)`` over candidate block sizes; cache the best.
-
-    The winner feeds later :func:`block_size` resolutions for ``family``
-    (below an explicit argument or the env var) and is appended to the
-    records :func:`autotune_records` returns. A candidate that the wrapper
-    refuses before launching (:class:`CandidateRefused`) is skipped; any
-    other error, a CUDA error raised by a launch among them, propagates.
-
-    ``flops_per_call`` / ``bytes_per_call`` (analytic counts for one
-    ``bench_fn`` call) turn the winner's time into achieved GFLOP/s and
-    GB/s on its record and in the ``repro_autotune_*`` gauges.
-    """
-    from repro_torch.obs.registry import registry as obs_registry
-
-    timings: dict[int, float] = {}
-    backend = "cpu"
-    for cand in candidates:
-        try:
-            timings[int(cand)], backend = _time_candidate(bench_fn, cand,
-                                                          reps)
-        except CandidateRefused:
-            continue
-    if not timings:
-        return None
-    best = min(timings, key=timings.get)
-    best_s = timings[best]
-    _AUTOTUNE_CACHE[family] = best
-    record = {
-        "family": family,
-        "backend": backend,
-        "best_block": best,
-        "timings_s": {str(k): v for k, v in timings.items()},
-    }
-    reg = obs_registry()
-    reg.gauge("repro_autotune_best_block", "autotune-selected block size",
-              family=family, backend=backend).set(best)
-    reg.gauge("repro_autotune_best_time_seconds",
-              "best per-call time of the autotune winner",
-              family=family, backend=backend).set(best_s)
-    if flops_per_call is not None and best_s > 0:
-        record["gflops"] = flops_per_call / best_s / 1e9
-        reg.gauge("repro_autotune_gflops",
-                  "achieved GFLOP/s of the autotune winner (roofline y)",
-                  family=family, backend=backend).set(record["gflops"])
-    if bytes_per_call is not None and best_s > 0:
-        record["gbytes_per_s"] = bytes_per_call / best_s / 1e9
-        reg.gauge("repro_autotune_gbytes_per_s",
-                  "achieved GB/s of the autotune winner",
-                  family=family, backend=backend).set(record["gbytes_per_s"])
-    _AUTOTUNE_RECORDS.append(record)
-    return best
-
-
-def autotune_records() -> list[dict]:
-    return list(_AUTOTUNE_RECORDS)
-
-
-def autotune_artifact_dir() -> Path:
-    """``artifacts/autotune`` at the root of the checkout (git-ignored)."""
-    return Path(__file__).resolve().parents[3] / "artifacts" / "autotune"
-
-
-def dump_autotune_records(path: Optional[os.PathLike] = None
-                          ) -> Optional[Path]:
-    """Write this process's autotune records as JSON (default: the
-    artifact directory, one file per backend); None if there are none."""
-    if not _AUTOTUNE_RECORDS:
-        return None
-    if path is None:
-        backend = _AUTOTUNE_RECORDS[-1]["backend"]
-        path = autotune_artifact_dir() / f"{backend}.json"
-    path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    with open(path, "w") as f:
-        json.dump(_AUTOTUNE_RECORDS, f, indent=1)
-    return path
-
-
-def clear_autotune_cache() -> None:
-    _AUTOTUNE_CACHE.clear()
-    _AUTOTUNE_RECORDS.clear()

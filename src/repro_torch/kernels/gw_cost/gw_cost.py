@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.cuda_lib import LOSS_CODES, check_tensor, raise_on
-from repro_torch.kernels.dispatch import CandidateRefused, refuse_grad
+from repro_torch.kernels.dispatch import refuse_grad
 from repro_torch.kernels.gw_cost.ref import gw_cost_ref
 
 LAUNCHES = {"gw_cost": 0}
@@ -93,8 +93,8 @@ def gw_cost_cuda(A, B, T, loss: str = "l1", threads: int = 256):
     check_tensor("B", B, (M, P), torch.float32, dev)
     check_tensor("T", T, (Ld, P), torch.float32, dev)
     if threads not in THREADS:
-        raise CandidateRefused(f"threads per block must be one of "
-                               f"{THREADS}, got {threads}")
+        raise ValueError(f"threads per block must be one of {THREADS}, "
+                         f"got {threads}")
     out = torch.empty((K, M), dtype=torch.float32, device=dev)
     S = splits(K, Ld, M, dev)
     ws = torch.empty((S, K, M) if S > 1 else (0,), dtype=torch.float32,

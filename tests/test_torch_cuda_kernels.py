@@ -793,24 +793,3 @@ def test_decode_step_on_card_matches_cpu(dev, name):
                                     act_dtype=torch.float32, device="cpu")
         assert got.is_cuda
         assert (got.cpu() - want).abs().max() <= 1e-4 * want.abs().max()
-
-
-def test_autotune_times_gw_cost_on_card(dev):
-    """``dispatch.autotune`` over K3's thread counts on the card: CUDA
-    events time each, 512 (which the wrapper refuses before launching) is
-    skipped, and the winner feeds ``block_size``."""
-    from repro_torch.kernels import dispatch
-
-    A, B, T = _rand((181, 181), 0, dev), _rand((181, 181), 1, dev), \
-        _rand((181, 181), 2, dev)
-    dispatch.clear_autotune_cache()
-    try:
-        best = dispatch.autotune(
-            "gw_cost", (512, 32, 64, 128, 256),
-            lambda b: gw_cost.gw_cost_cuda(A, B, T, "l1", threads=b))
-        rec = dispatch.autotune_records()[-1]
-        assert best in gw_cost.THREADS and rec["backend"] == "cuda"
-        assert sorted(rec["timings_s"]) == ["128", "256", "32", "64"]
-        assert dispatch.block_size("gw_cost") == best
-    finally:
-        dispatch.clear_autotune_cache()
