@@ -142,6 +142,22 @@ Phases; any failure raises and exits non-zero with no result line:
    bytes and the peak memory printed); ``gw_similarity`` at full depth in bfloat16, whose two
    forwards must each launch K6 81 times; and the CLI, ``launch.serve
    --mode lm --arch zamba2-7b --reduced --metric gw``, to its end;
+train. drive the training path: (a) the loss gradient of
+   smollm-135m at its published width and depth (B = 2, S = 512, fp32)
+   through K5 (30 launches, its ``autograd.Function``'s plain backward)
+   against the gradient through K5's plain version, and of phase 7's
+   1-superblock zamba2-7b through K6 (9 launches) against K6's plain
+   version, each within a relative norm limit that the route dropping the
+   kernel's gradient (its output taken without a graph) must exceed; (b)
+   ``launch.train.train`` on smollm-135m, B = 8, S = 512, 20 steps with
+   ``use_flash`` and ``gw_align``, a checkpoint every 10 in a temporary
+   directory: finite losses, the mean ce of the last 5 steps below the
+   first 5's, K5 1200 launches (remat runs each forward twice); step wall
+   (median), tokens/s, peak memory; one more step profiled (idle share,
+   K5's forward and backward device time) and one without the alignment
+   loss; K5's forward and plain backward timed at the step's shape; (c)
+   under ``torch.use_deterministic_algorithms(True)``, 2 steps and a
+   resume of 2 more bit for bit 4 straight (losses and parameters);
 8. time every kernel at its path's shapes against its plain version,
    its bound and, where one exists, one library call (K5 also at
    llama3-8b's attention shape; K1's lane launch at (8, 8192) also
@@ -159,7 +175,8 @@ Phases; any failure raises and exits non-zero with no result line:
 
 The line before the last is the kernel JSON (K1's row also counts its
 launches on phase 4f's ``gw_loss``; its lane launch's row, on phase 4g's
-spar lanes); the last line is
+spar lanes; K5's row its launches in the train run, ``launches_train``;
+K6's in the zamba2 gradient, ``launches_train_grad``); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
 package ``repro``.
 """
@@ -171,6 +188,7 @@ import importlib
 import io
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -322,6 +340,27 @@ LM_PREFILL_REPS = 3
 # place on the plain route and is held to fail
 LM_LOGIT_REL = 1e-4
 LM_LOGIT_REL_3XTF32 = 12 * LM_LOGIT_REL
+
+# phase "train": smollm-135m at its published width and depth. (a) the loss
+# gradient through K5 (and through K6 on zamba2-7b at 1 superblock + tail)
+# against the plain versions' at B x S; (b) launch.train.train for
+# TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ, a checkpoint every
+# TRAIN_CKPT_EVERY; (c) N steps and a resume of N more against 2N straight,
+# under deterministic algorithms
+TRAIN_ARCH = "smollm_135m"
+TRAIN_GRAD_BATCH, TRAIN_GRAD_SEQ = 2, 512
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 512, 20, 10
+RESUME_STEPS, RESUME_BATCH, RESUME_SEQ = 2, 2, 512
+# (a)'s limits on ||grad through the kernel - grad through its plain
+# version|| / ||grad through the plain version|| (all leaves), set from
+# readings on the H100 (PERF.md §6): K5 read 2.9e-6 against 0.90 for
+# the route that drops its gradient (the ctypes output without a graph);
+# K6 1.3e-4 against 0.999. The limits are phase 7's logit bounds: 1e-4
+# for fp32 arithmetic (35x K5's reading), 12 x 1e-4 for K6's 3xTF32
+# products (9x its reading); both lie far below the dropped routes,
+# which the phase also checks
+K5_GRAD_REL = LM_LOGIT_REL
+K6_GRAD_REL = LM_LOGIT_REL_3XTF32
 
 
 def moon_points(n: int, seed: int = 0):
@@ -510,9 +549,10 @@ def k1_lanes_inputs(torch, dev):
     return L, t, off
 
 
-def profile_solve(torch, fn, top: int = 8) -> dict:
+def profile_solve(torch, fn, top: int = 8, extra=None) -> dict:
     """Trace ``fn()`` with torch.profiler: wall time, the summed device
-    time of its CUDA kernels, the device's idle share, the top kernels.
+    time of its CUDA kernels, the device's idle share, the top kernels,
+    and what ``extra(prof)`` reads from the trace, if given.
 
     Kernels run on one stream, so their device times do not overlap; the
     profiler's own overhead lengthens the wall time, so the idle share is
@@ -543,6 +583,7 @@ def profile_solve(torch, fn, top: int = 8) -> dict:
     return {"wall_s": wall, "device_busy_s": busy,
             "idle_share": max(0.0, 1.0 - busy / wall),
             "kernel_launches": sum(r[1] for r in rows),
+            **(extra(prof) if extra else {}),
             "top": [{"kernel": k[:80], "calls": c, "ms": us / 1e3}
                     for us, c, k in rows[:top]]}
 
@@ -586,7 +627,290 @@ def tree_sinkhorn_ms(tree: Path, inputs_path: Path) -> dict:
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
+def k5_in_profile(prof) -> dict:
+    """K5's device time in a profiled train step: its forward kernel's
+    (self time), and its backward's (the device time under the autograd
+    node ``FlashAttentionBackward``: plain torch ops)."""
+    from torch.autograd import DeviceType
+
+    def us(e, name):                 # device_* names; cuda_* before them
+        value = getattr(e, f"{name}device_time_total", None)
+        return getattr(e, f"{name}cuda_time_total") if value is None \
+            else value
+
+    fwd_us = bwd_us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            if "flash_attention_f32" in e.key:
+                fwd_us += us(e, "self_")
+        elif "FlashAttentionBackward" in e.key:      # the node and its range
+            bwd_us = max(bwd_us, us(e, ""))
+    return {"k5_forward_ms": fwd_us / 1e3,
+            "k5_backward_ms": bwd_us / 1e3 if bwd_us else None}
+
+
+def train_phase(torch, dev, short, short_params) -> dict:
+    """Phase "train": the training path on the card (see the module
+    docstring). ``short`` is phase 7's zamba2-7b at 1 superblock + tail,
+    ``short_params`` its bfloat16 weights. Returns the launches of K5 in
+    the train run and of K6 in the zamba2 gradient, for the kernel line."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.launch import steps as train_steps
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import Model
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.optim import adamw
+
+    def batch_of(cfg, seq, batch, step=0):
+        return {k: torch.as_tensor(v).to(dev) for k, v in TokenPipeline(
+            cfg, seq, batch).global_batch_at(step).items()}
+
+    def loss_grads(model, params, batch, **kw):
+        live = adamw.tree_map(lambda t: t.detach().requires_grad_(True),
+                              params)
+        loss, _ = model.loss(live, batch, device=dev, **kw)
+        # the dropped routes leave wq, wk and wv out of the graph: zeros
+        return float(loss.detach()), torch.autograd.grad(
+            loss, adamw.tree_leaves(live), allow_unused=True,
+            materialize_grads=True)
+
+    def rel(got, want):
+        """||got - want|| / ||want|| over all leaves (float64 sums)"""
+        num = sum(float((a.double() - b.double()).pow(2).sum())
+                  for a, b in zip(got, want))
+        return math.sqrt(num / sum(float(b.double().pow(2).sum())
+                                   for b in want))
+
+    def launches():
+        torch.cuda.synchronize()
+        return {"flash_attention": fa.LAUNCHES["flash_attention"],
+                "ssd_intra": ssd.LAUNCHES["ssd_intra"]}
+
+    def reset():
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        ssd.reset_launch_counts()
+
+    # (a) gradients through K5 (smollm-135m, full width and depth) and K6
+    # (zamba2-7b, 1 superblock + tail), each against the plain version's and
+    # against the route that drops the kernel's gradient (a ctypes output
+    # with no graph: attention's q/k/v path, or the intra-chunk term, falls
+    # out of the gradient)
+    cfg = get_arch(TRAIN_ARCH)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    batch = batch_of(cfg, TRAIN_GRAD_SEQ, TRAIN_GRAD_BATCH)
+    t0 = time.perf_counter()
+    reset()
+    loss_k, g_k = loss_grads(model, params, batch, use_flash=True)
+    k5_grad_launches = launches()
+    k5_grad_wall = time.perf_counter() - t0
+    loss_p, g_p = loss_grads(model, params, batch, use_flash=True,
+                             use_kernel=False)
+    launch_k5 = fa_ops.flash_attention_cuda
+    fa_ops.flash_attention_cuda = lambda q, k, v, groups: \
+        fa._flash_attention_forward(q.detach(), k.detach(), v.detach(),
+                                    groups)
+    try:
+        loss_d, g_d = loss_grads(model, params, batch, use_flash=True)
+    finally:
+        fa_ops.flash_attention_cuda = launch_k5
+    attn_idx = [i for i, n in enumerate(leaf_names(params))
+                if "/attn/w" in n]
+    k5 = {"kernel": rel(g_k, g_p), "dropped": rel(g_d, g_p),
+          "kernel_attn_weights": rel([g_k[i] for i in attn_idx],
+                                     [g_p[i] for i in attn_idx]),
+          "dropped_attn_weights": rel([g_d[i] for i in attn_idx],
+                                      [g_p[i] for i in attn_idx]),
+          "loss": {"kernel": loss_k, "plain": loss_p, "dropped": loss_d},
+          "launches": k5_grad_launches, "wall_s": k5_grad_wall}
+    del g_k, g_p, g_d, params
+    torch.cuda.empty_cache()
+
+    zparams = short._cast_params(short_params, torch.float32, dev)
+    zbatch = batch_of(short.cfg, TRAIN_GRAD_SEQ, TRAIN_GRAD_BATCH)
+    t0 = time.perf_counter()
+    reset()
+    zl_k, zg_k = loss_grads(short, zparams, zbatch)
+    k6_grad_launches = launches()
+    k6_grad_wall = time.perf_counter() - t0
+    zl_p, zg_p = loss_grads(short, zparams, zbatch, use_kernel=False)
+    launch_k6 = ssm_mod.ssd_intra
+    ssm_mod.ssd_intra = lambda *a, device: ssd._ssd_intra_forward(
+        *(t.detach().float().contiguous() for t in a))
+    try:
+        zl_d, zg_d = loss_grads(short, zparams, zbatch)
+    finally:
+        ssm_mod.ssd_intra = launch_k6
+    k6 = {"kernel": rel(zg_k, zg_p), "dropped": rel(zg_d, zg_p),
+          "loss": {"kernel": zl_k, "plain": zl_p, "dropped": zl_d},
+          "launches": k6_grad_launches, "wall_s": k6_grad_wall}
+    del zg_k, zg_p, zg_d, zparams
+    torch.cuda.empty_cache()
+    print(json.dumps({"train_gradients": {
+        "k5_smollm_135m": {"batch": TRAIN_GRAD_BATCH, "seq": TRAIN_GRAD_SEQ,
+                           "limit": K5_GRAD_REL, **k5},
+        "k6_zamba2_7b_1_superblock": {"batch": TRAIN_GRAD_BATCH,
+                                      "seq": TRAIN_GRAD_SEQ,
+                                      "limit": K6_GRAD_REL, **k6}}}))
+    want_k5 = {"flash_attention": cfg.n_layers, "ssd_intra": 0}
+    want_k6 = {"flash_attention": 0,
+               "ssd_intra": len(short.cfg.block_pattern)
+               + len(short.cfg.tail_blocks)}
+    if k5_grad_launches != want_k5 or k6_grad_launches != want_k6 \
+            or not k5["kernel"] <= K5_GRAD_REL < k5["dropped"] \
+            or not k6["kernel"] <= K6_GRAD_REL < k6["dropped"]:
+        raise AssertionError(
+            f"train gradients: K5 {k5['kernel']:.3g} (dropped "
+            f"{k5['dropped']:.3g}, limit {K5_GRAD_REL}), K6 "
+            f"{k6['kernel']:.3g} (dropped {k6['dropped']:.3g}, limit "
+            f"{K6_GRAD_REL}); launches {k5_grad_launches} / "
+            f"{k6_grad_launches}, expected {want_k5} / {want_k6}")
+
+    # (b) launch.train.train at full width and depth: flash attention and
+    # the alignment loss on, a checkpoint every TRAIN_CKPT_EVERY steps
+    log = io.StringIO()
+    with tempfile.TemporaryDirectory() as ckpt:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            p_tr, s_tr, hist = train_mod.train(
+                cfg, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, ckpt_dir=ckpt,
+                ckpt_every=TRAIN_CKPT_EVERY, use_flash=True, gw_align=True,
+                log_every=TRAIN_CKPT_EVERY)
+        train_wall = time.perf_counter() - t0
+        train_launches = launches()
+        peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+        ckpt_steps = CheckpointManager(ckpt).all_steps()
+    walls = sorted(h["step_s"] for h in hist)
+    step_s = walls[len(walls) // 2]
+    first = sum(h["ce"] for h in hist[:5]) / 5
+    last = sum(h["ce"] for h in hist[-5:]) / 5
+    want_train = {"flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
+                  "ssd_intra": 0}          # remat runs each forward twice
+
+    # one more step, profiled, after a warm one; K5 at the step's shape
+    step_fn = train_steps.make_train_step(
+        model, act_dtype=torch.float32, remat=True, use_flash=True,
+        gw_align=True, warmup=max(1, TRAIN_STEPS // 10),
+        total_steps=TRAIN_STEPS)
+    state = [p_tr, s_tr]
+    tb = batch_of(cfg, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS)
+
+    def one_step():
+        state[0], state[1], m = step_fn(state[0], state[1], tb)
+        return float(m["loss"])
+
+    one_step()
+    prof = profile_solve(torch, one_step, top=10, extra=k5_in_profile)
+    # the same step without the alignment loss (the same model path, warm):
+    # the loss's share of the launches
+    plain_fn = train_steps.make_train_step(
+        model, act_dtype=torch.float32, remat=True, use_flash=True,
+        warmup=max(1, TRAIN_STEPS // 10), total_steps=TRAIN_STEPS)
+
+    def one_plain_step():
+        state[0], state[1], m = plain_fn(state[0], state[1], tb)
+        return float(m["loss"])
+
+    prof_no_align = profile_solve(torch, one_plain_step, top=3)
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, cot = (torch.randn(TRAIN_BATCH * n, TRAIN_SEQ, hd, generator=g,
+                                device=dev) for n in (H, K, K, H))
+    k5_fwd_ms = time_ms(torch, lambda: fa.flash_attention_cuda(
+        q, k, v, H // K), 20)
+    k5_bwd_ms = time_ms(torch, lambda: fa.flash_attention_backward_plain(
+        q, k, v, H // K, cot), 10)
+    del q, k, v, cot, state, p_tr, s_tr
+    torch.cuda.empty_cache()
+
+    # (c) N steps and a resume of N more against 2N straight, bit for bit,
+    # under deterministic algorithms (the embedding's and the alignment
+    # loss's index backwards otherwise sum with atomics)
+    kw = dict(use_flash=True, gw_align=True, log_every=0)
+    torch.use_deterministic_algorithms(True)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            pa, _, ha = train_mod.train(cfg, 2 * RESUME_STEPS, RESUME_BATCH,
+                                        RESUME_SEQ, **kw)
+            with tempfile.TemporaryDirectory() as ckpt:
+                train_mod.train(cfg, RESUME_STEPS, RESUME_BATCH, RESUME_SEQ,
+                                ckpt_dir=ckpt, ckpt_every=RESUME_STEPS,
+                                schedule_total=2 * RESUME_STEPS, **kw)
+                pb, _, hb = train_mod.train(cfg, 2 * RESUME_STEPS,
+                                            RESUME_BATCH, RESUME_SEQ,
+                                            ckpt_dir=ckpt,
+                                            ckpt_every=RESUME_STEPS, **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    resume_wall = time.perf_counter() - t0
+    resume_losses = [h["loss"] for h in ha[RESUME_STEPS:]]
+    bitwise = resume_losses == [h["loss"] for h in hb] and all(
+        torch.equal(x, y) for x, y in zip(adamw.tree_leaves(pa),
+                                          adamw.tree_leaves(pb)))
+    del pa, pb
+    torch.cuda.empty_cache()
+
+    print(json.dumps({"train_path": {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "steps": TRAIN_STEPS,
+        "act_dtype": "float32", "use_flash": True, "gw_align": True,
+        "remat": True, "wall_s": train_wall, "step_median_s": step_s,
+        "step_walls_s": [h["step_s"] for h in hist],
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+        "peak_memory_gib_above_start": peak_gib,
+        "ce_first_5": first, "ce_last_5": last,
+        "losses": [h["loss"] for h in hist],
+        "checkpoints": ckpt_steps, "launches": train_launches,
+        "profiled_step": prof, "profiled_step_no_gw_align": prof_no_align,
+        "k5_at_step_shape_ms": {"forward": k5_fwd_ms,
+                                "backward_plain": k5_bwd_ms},
+        "log": log.getvalue().strip().splitlines(),
+        "resume": {"steps": RESUME_STEPS, "batch": RESUME_BATCH,
+                   "seq_len": RESUME_SEQ, "deterministic": True,
+                   "bitwise": bitwise, "losses": resume_losses,
+                   "wall_s": resume_wall}}}))
+    if not all(math.isfinite(h["loss"]) for h in hist) or not last < first \
+            or train_launches != want_train \
+            or ckpt_steps != [TRAIN_CKPT_EVERY, TRAIN_STEPS]:
+        raise AssertionError(f"train: ce {first:.4f} -> {last:.4f}, "
+                             f"launches {train_launches} (expected "
+                             f"{want_train}), checkpoints {ckpt_steps}")
+    if not bitwise:
+        raise AssertionError("train: the resumed run is not bit for bit "
+                             "the straight one")
+    return {"flash_attention": train_launches["flash_attention"],
+            "ssd_intra": k6_grad_launches["ssd_intra"]}
+
+
+def leaf_names(tree, prefix="") -> list:
+    """Key paths of the tensors of a nest of dicts and lists, in the order
+    ``optim.adamw.tree_leaves`` walks them."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items() for n in leaf_names(
+            v, f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in leaf_names(
+            v, f"{prefix}/{i}")]
+    return [prefix]
+
+
 def main(parent: Path | None = None) -> int:
+    # the train phase's resume runs under deterministic algorithms, whose
+    # cuBLAS needs this before the first cuBLAS call (32 MiB: the default
+    # workspace on the H100)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -2290,6 +2614,11 @@ def main(parent: Path | None = None) -> int:
     del seqs, warm_seqs, prompts, finite
     torch.cuda.empty_cache()
 
+    # -- train. the training path: smollm-135m, K5 and K6 gradients ---------
+    stamps.append(("train", time.perf_counter()))
+    train_launches = train_phase(torch, dev, short, {
+        **params, "blocks": params["blocks"][:1]})
+
     # -- 8. kernels at their paths' shapes ----------------------------------
     stamps.append(("8", time.perf_counter()))
     rows, cols = support
@@ -2498,6 +2827,7 @@ def main(parent: Path | None = None) -> int:
                "replaces": "src/repro/kernels/flash_attention/"
                            "flash_attention.py:61",
                "launches": lm_launches["flash_attention"],
+               "launches_train": train_launches["flash_attention"],
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": lib_ms}
@@ -2540,7 +2870,9 @@ def main(parent: Path | None = None) -> int:
         "name": "ssd_intra", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_intra.cu",
         "replaces": "src/repro/kernels/ssd/ssd.py:43",
-        "launches": lm_launches["ssd_intra"], "max_abs_err": err, "ms": ms,
+        "launches": lm_launches["ssd_intra"],
+        "launches_train_grad": train_launches["ssd_intra"],
+        "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None})
     del xdt, Bm, Cm, cs

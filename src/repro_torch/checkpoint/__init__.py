@@ -1,0 +1,4 @@
+"""Checkpointing (counterpart of ``repro.checkpoint``)."""
+from repro_torch.checkpoint.manager import CheckpointManager
+
+__all__ = ["CheckpointManager"]

@@ -126,7 +126,7 @@ CLI_ALIASES = {
 
 
 # the ids whose modules the port has; the rest wait for ROADMAP item 17b
-PORTED_IDS = ("llama3_8b", "zamba2_7b")
+PORTED_IDS = ("llama3_8b", "zamba2_7b", "smollm_135m", "phi4_mini_3_8b")
 
 
 def _module(name: str):

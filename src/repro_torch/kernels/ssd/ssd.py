@@ -12,6 +12,12 @@ A wrapper given CUDA tensors launches the kernel on the current stream or
 raises; given CPU tensors it runs the plain PyTorch version
 (:func:`ref.ssd_intra_ref`). ``LAUNCHES`` counts kernel launches (plain
 runs do not count).
+
+The kernel has no backward, as the reference's has none: the reference
+differentiates its plain jnp intra-chunk block (``_ssd_chunked``). With
+grad enabled and an input requiring grad, the wrapper goes through
+:class:`SsdIntra`, whose forward is the kernel and whose backward is the
+VJP of the plain version, recomputed.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import ctypes
 import functools
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.cuda_lib import check_tensor, raise_on
@@ -62,7 +69,40 @@ def ssd_intra_cuda(xdt, cs, Bm, Cm):
     """y (G, k, H, P) float32 from xdt (G, k, H, P), cs (G, k, H), Bm and Cm
     (G, k, N), all float32 and contiguous. CUDA tensors launch the kernel
     (k <= 128, any P, N and H); CPU tensors take :func:`ssd_intra_plain`.
+    With grad enabled and an input requiring grad the call goes through
+    :class:`SsdIntra` and its output carries the gradient.
     """
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xdt, cs, Bm, Cm)):
+        return SsdIntra.apply(xdt, cs, Bm, Cm)
+    return _ssd_intra_forward(xdt, cs, Bm, Cm)
+
+
+class SsdIntra(torch.autograd.Function):
+    """The intra-chunk block through the kernel, with a plain torch
+    backward: the VJP of :func:`ssd_intra_plain`, recomputed from the
+    saved inputs (its (G, k, k, H) decay block lives only during the
+    backward)."""
+
+    @staticmethod
+    def forward(ctx, xdt, cs, Bm, Cm):
+        ctx.save_for_backward(xdt, cs, Bm, Cm)
+        return _ssd_intra_forward(xdt, cs, Bm, Cm)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        need = ctx.needs_input_grad
+        inputs = [t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            y = ssd_intra_plain(*inputs)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(y, wanted, g))
+        return tuple(next(grads) if n else None for n in need)
+
+
+def _ssd_intra_forward(xdt, cs, Bm, Cm):
     if not xdt.is_cuda:
         return ssd_intra_plain(xdt, cs, Bm, Cm)
     G, k, H, P = xdt.shape

@@ -10,10 +10,13 @@ caches come back stacked over superblocks as the scan returns them.
 ``sharding_ctx`` constraints are identities on one card and are left out.
 
 Entry points: ``init``, ``forward`` (returns logits, final hidden, aux),
+``loss`` (the causal LM loss, optionally with the GW alignment loss),
 ``prefill`` (last-position logits and the fresh caches), ``init_cache``
 (zero caches) and ``decode_step`` (one token against the caches, which it
 updates in place). They run on the CUDA card unless ``device="cpu"`` is
-given, and raise without a card. MLA and the ``moe``, ``xattn``,
+given, and raise without a card. ``forward(remat=True)`` recomputes each
+superblock in the backward (``torch.utils.checkpoint``), where the
+reference checkpoints its scan body. MLA and the ``moe``, ``xattn``,
 ``mlstm``, ``slstm`` kinds wait for ROADMAP item 17b.
 """
 from __future__ import annotations
@@ -21,12 +24,14 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import dispatch
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.layers import (
+    cross_entropy,
     embed,
     embed_params,
     mlp,
@@ -250,7 +255,7 @@ class Model:
         params = self._cast_params(params, act_dtype, dev)
         positions = torch.full((B, 1), int(index), dtype=torch.int64,
                                device=dev)
-        x = embed(params["embed"], tokens).to(act_dtype)
+        x = self._embed_tokens(params, tokens, act_dtype)
         x, _ = self._stack(params, x, positions, False, True, True,
                            caches=cache, cache_index=int(index))
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
@@ -266,6 +271,9 @@ class Model:
             lambda t: t.to(device=device, dtype=act_dtype)
             if t.is_floating_point() else t.to(device), params)
 
+    def _embed_tokens(self, params, tokens, act_dtype):
+        return embed(params["embed"], tokens).to(act_dtype)
+
     def _logits(self, params, x):
         x = x.float()
         if self.cfg.tie_embeddings:
@@ -275,15 +283,23 @@ class Model:
     # -- core stack ----------------------------------------------------------
 
     def _stack(self, params, x, positions, use_flash, use_kernel,
-               want_cache, caches=None, cache_index=None):
+               want_cache, caches=None, cache_index=None, remat=False):
         """The superblocks, then the tail. With ``caches`` (decode) each
         block reads its slice of the stacked caches and the new states are
         written back into them; otherwise the fresh caches are stacked
-        (``want_cache``)."""
+        (``want_cache``). ``remat`` (training, no caches) keeps only each
+        superblock's input for the backward and runs the superblock again
+        there."""
         cfg = self.cfg
         shared_p = params.get("shared")
         sb_caches, sh_caches = [], []
         for i, blk_p in enumerate(params["blocks"]):
+            if remat and caches is None and not want_cache:
+                # the blocks draw no random numbers: no RNG state to stash
+                x = checkpoint(self._superblock_x, blk_p, shared_p, x,
+                               positions, use_flash, use_kernel,
+                               use_reentrant=False, preserve_rng_state=False)
+                continue
             sb_in = sh_in = None
             if caches is not None:
                 sb_in = _map_tensors(lambda t: t[i], caches["blocks"])
@@ -316,16 +332,21 @@ class Model:
             cache_out["tail"] = tuple(new_tail)
         return x, cache_out
 
+    def _superblock_x(self, blk_p, shared_p, x, positions, use_flash,
+                      use_kernel):
+        return superblock_apply(blk_p, shared_p, self.cfg, x, positions,
+                                use_flash, use_kernel)[0]
+
     def _run(self, params, tokens, act_dtype, use_flash, use_kernel, device,
-             want_cache):
+             want_cache, remat=False):
         dev = dispatch.resolve_device(device)
         tokens = tokens.to(dev)
         B, S = tokens.shape[0], tokens.shape[1]
         params = self._cast_params(params, act_dtype, dev)
         positions = torch.arange(S, device=dev)[None].expand(B, S)
-        x = embed(params["embed"], tokens).to(act_dtype)
+        x = self._embed_tokens(params, tokens, act_dtype)
         x, cache = self._stack(params, x, positions, use_flash, use_kernel,
-                               want_cache)
+                               want_cache, remat=remat)
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
         return params, x, cache
 
@@ -333,15 +354,18 @@ class Model:
 
     def forward(self, params, tokens, act_dtype=torch.float32,
                 use_flash: bool = False, use_kernel: bool = True,
-                device=None):
+                device=None, remat: bool = False):
         """Training forward. Returns (logits, final_hidden, aux_loss); the
         aux loss is 0 (only MoE blocks add one).
 
         ``use_kernel=False`` runs the plain versions of the kernels instead
         of the kernels (on the card too), to hold one against the other.
+        ``remat`` recomputes each superblock in the backward instead of
+        keeping its activations (the same values, bit for bit).
         """
         params, x, _ = self._run(params, tokens, act_dtype, use_flash,
-                                 use_kernel, device, want_cache=False)
+                                 use_kernel, device, want_cache=False,
+                                 remat=remat)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return self._logits(params, x), x, aux
 
@@ -356,6 +380,43 @@ class Model:
         params, x, cache = self._run(params, tokens, act_dtype, use_flash,
                                      use_kernel, device, want_cache=True)
         return self._logits(params, x[:, -1:]), cache
+
+    # -- loss -----------------------------------------------------------------
+
+    def loss(self, params, batch, act_dtype=torch.float32,
+             use_flash: bool = False, remat: bool = False,
+             gw_align: bool = False, gw_generator=None, gw_draws=None,
+             use_kernel: bool = True, device=None):
+        """Causal LM loss (+ optional GW alignment auxiliary loss).
+
+        ``batch`` holds ``tokens`` and ``labels`` (B, S), tensors or numpy
+        arrays. Returns (loss, {"ce", "aux"}): loss = ce + 0.01·aux, plus
+        0.1·``gw_alignment_loss(hidden, emb)`` with ``gw_align``, which
+        aligns the final hidden geometry to the token embeddings' (the
+        paper's technique as a training loss). Its token draws come from
+        ``gw_generator`` (a ``torch.Generator`` on the device), or are
+        given as ``gw_draws=(R, C)`` (the parity tests pass the
+        reference's).
+        """
+        from repro_torch.core.align import gw_alignment_loss
+
+        dev = dispatch.resolve_device(device)
+        tokens = torch.as_tensor(batch["tokens"]).to(dev)
+        labels = torch.as_tensor(batch["labels"]).to(dev)
+        logits, hidden, aux = self.forward(
+            params, tokens, act_dtype=act_dtype, use_flash=use_flash,
+            use_kernel=use_kernel, device=dev, remat=remat)
+        ce = cross_entropy(logits, labels)
+        loss = ce + 0.01 * aux
+        if gw_align:
+            if gw_generator is None and gw_draws is None:
+                raise ValueError("gw_align needs gw_generator or gw_draws")
+            emb = self._embed_tokens(
+                _map_tensors(lambda t: t.to(dev), {"embed": params["embed"]}),
+                tokens, act_dtype)
+            loss = loss + 0.1 * gw_alignment_loss(gw_generator, hidden, emb,
+                                                  draws=gw_draws)
+        return loss, {"ce": ce, "aux": aux}
 
 
 def build_model(cfg: ArchConfig) -> Model:

@@ -605,6 +605,35 @@ def test_flash_attention_input_checks(dev):
     assert fa.LAUNCHES["flash_attention"] == 0
 
 
+@pytest.mark.parametrize("S,H,K,hd", [(1, 2, 1, 16), (200, 4, 2, 64),
+                                      (777, 8, 2, 112)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_grad_matches_plain(dev, S, H, K, hd, dtype):
+    """The kernel's autograd.Function: one launch, and dq, dk, dv (its
+    plain backward, chunked) against autograd through the plain version
+    in float32 on the same inputs: 1e-5 of the largest entry of the three
+    in float32, 2⁻⁷ (a bf16 ulp, the output's rounding) in bfloat16. (At
+    S = 1 dk is 0: one key takes the whole softmax.)"""
+    q, k, v = (_normal((n, S, hd), i, dev, dtype).requires_grad_(True)
+               for i, n in enumerate((H, K, K)))
+    cot = _normal((H, S, hd), 3, dev)
+    fa.reset_launch_counts()
+    out = fa.flash_attention_cuda(q, k, v, groups=H // K)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    got = torch.autograd.grad(out, (q, k, v), cot.to(dtype))
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 1
+    ref = [x.detach().float().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(
+        fa.flash_attention_plain(*ref, groups=H // K), ref,
+        cot.to(dtype).float())
+    rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    scale = max(float(w.abs().max()) for w in want)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        assert (g.float() - w).abs().max() <= rel * scale
+
+
 def _ssd_inputs(G, k, H, P, N, offset, dev):
     rng = np.random.default_rng(G * k + H)
     size = G * k * H * P
@@ -680,6 +709,59 @@ def test_ssd_intra_never_forms_the_masked_decay(dev):
     Gm = (Cm * Bm).sum(-1)                       # only t == s survives
     torch.testing.assert_close(got, Gm[:, :, None, None] * xdt, rtol=1e-5,
                                atol=1e-5)
+
+
+def test_ssd_intra_grad_matches_plain(dev):
+    """The kernel's autograd.Function at zamba2-7b's layer widths: one
+    launch, and the gradient of every input (the plain version's VJP,
+    recomputed) against autograd through the plain version: the same
+    ops on the same inputs, so within float32 rounding of the largest
+    entry."""
+    xdt, cs, Bm, Cm = _ssd_inputs(4, 128, 112, 64, 64, 0, dev)
+    ins = [x.clone().requires_grad_(True) for x in (xdt, cs, Bm, Cm)]
+    cot = _normal(tuple(xdt.shape), 6, dev)
+    ssd.reset_launch_counts()
+    out = ssd.ssd_intra_cuda(*ins)
+    assert type(out.grad_fn).__name__ == "SsdIntraBackward"
+    got = torch.autograd.grad(out, ins, cot)
+    torch.cuda.synchronize()
+    assert ssd.LAUNCHES["ssd_intra"] == 1
+    ref = [x.clone().requires_grad_(True) for x in (xdt, cs, Bm, Cm)]
+    want = torch.autograd.grad(ssd.ssd_intra_plain(*ref), ref, cot)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max() <= 1e-6 * w.abs().max()
+
+
+@pytest.mark.parametrize("name", ["smollm_135m", "zamba2_7b"])
+def test_train_step_on_card_matches_cpu(dev, name):
+    """One train step of the reduced model (flash attention, the
+    alignment loss on the same draws) on the card through K5 / K6 and
+    their Functions against the CPU path: loss, ce and the gradient norm
+    within 1e-4, as the CPU parity tests hold the stack."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+
+    cfg = get_reduced(name)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    batch = TokenPipeline(cfg, 32, 2).global_batch_at(0)
+    rng = np.random.default_rng(1)
+    draws = (rng.integers(0, 32, (2, 64)), rng.integers(0, 32, (2, 64)))
+    step_fn = steps.make_train_step(model, act_dtype=torch.float32,
+                                    use_flash=True, gw_align=True)
+    out = {}
+    for where in ("cpu", dev):
+        p = adamw.tree_map(lambda t: t.to(where), params)
+        fa.reset_launch_counts()
+        ssd.reset_launch_counts()
+        _, state, m = step_fn(p, adamw.init(p), batch, gw_draws=draws)
+        out[str(where)] = {k: float(v) for k, v in m.items()}
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] + ssd.LAUNCHES["ssd_intra"] > 0
+    for key in ("loss", "ce", "gnorm"):
+        assert abs(out["cuda"][key] - out["cpu"][key]) \
+            <= 1e-4 * abs(out["cpu"][key])
 
 
 def test_ssd_intra_input_checks(dev):

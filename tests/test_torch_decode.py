@@ -194,7 +194,7 @@ def test_lm_cli_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--mode", "lm", "--arch", "zamba2-7b", "--reduced"])
     with pytest.raises(NotImplementedError, match="item 17b"):
-        serve.main(["--mode", "lm", "--arch", "smollm-135m", "--reduced",
+        serve.main(["--mode", "lm", "--arch", "xlstm-125m", "--reduced",
                     "--device", "cpu"])
     with pytest.raises(SystemExit):
         with contextlib.redirect_stderr(io.StringIO()):

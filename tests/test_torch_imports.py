@@ -18,8 +18,8 @@ from repro_torch.kernels import dispatch
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
-# the multiscale, health, diff, optim, obs, serve, launch and legacy core
-# modules:
+# the multiscale, health, diff, optim, obs, serve, launch, legacy core and
+# training modules:
 # scanned like every other file, and required to be there
 NEW_MODULES = ("multiscale/anchors.py", "multiscale/compress.py",
                "multiscale/refine.py", "multiscale/solver.py",
@@ -32,7 +32,11 @@ NEW_MODULES = ("multiscale/anchors.py", "multiscale/compress.py",
                "serve/lanes.py", "serve/metrics.py", "serve/server.py",
                "launch/__init__.py", "launch/serve.py",
                "core/spar_gw.py", "core/emd.py", "core/sagrow.py",
-               "core/align.py", "core/sharded_gw.py")
+               "core/align.py", "core/sharded_gw.py",
+               "data/__init__.py", "data/pipeline.py",
+               "checkpoint/__init__.py", "checkpoint/manager.py",
+               "launch/steps.py", "launch/train.py",
+               "configs/smollm_135m.py", "configs/phi4_mini_3_8b.py")
 
 
 def _port_files():

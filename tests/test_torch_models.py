@@ -36,7 +36,7 @@ from repro_torch.models import Model, attention, layers, ssm
 from repro_torch.models.interop import model_params_from_jax
 
 MODULE_REL, STACK_REL = 1e-5, 1e-4
-PORTED = ("zamba2_7b", "llama3_8b")
+PORTED = ("zamba2_7b", "llama3_8b", "smollm_135m", "phi4_mini_3_8b")
 
 
 def _close(got, want, rel):

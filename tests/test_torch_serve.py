@@ -953,5 +953,5 @@ def test_launch_serve_runs_on_the_cpu():
     # --mode lm is ported (tests/test_torch_decode.py); an architecture
     # the port lacks still raises
     with pytest.raises(NotImplementedError, match="item 17b"):
-        launch_serve.main(["--mode", "lm", "--arch", "smollm-135m",
+        launch_serve.main(["--mode", "lm", "--arch", "xlstm-125m",
                            "--device", "cpu"])
