@@ -142,6 +142,30 @@ Phases; any failure raises and exits non-zero with no result line:
    bytes and the peak memory printed); ``gw_similarity`` at full depth in bfloat16, whose two
    forwards must each launch K6 81 times; and the CLI, ``launch.serve
    --mode lm --arch zamba2-7b --reduced --metric gw``, to its end;
+7c. drive the other six architectures (minicpm3-4b: MLA; llama4-scout
+   and phi3.5-moe: MoE; llama-3.2-vision-90b: cross-attention to 1024
+   image embeddings; xlstm-125m: mLSTM and sLSTM; musicgen-medium: 4
+   codebooks) at their published widths, weights drawn on the card in
+   float32 from a torch generator, each at the depth of ``ARCHS`` (all of
+   minicpm3's 62 and musicgen's 48 superblocks, 2 of llama4's 48, 4 of
+   phi3.5's 32, 1 of vision's 20, xLSTM's 3), one after the other: (a) a
+   1-superblock float32 ``Model.forward`` at S = 1024 through K5 against
+   K5's plain version, within 1e-4 of the largest logit (MoE at capacity
+   factor 100); (c) 32 teacher-forced ``decode_step`` logits against the
+   forward at 1 superblock (atol 2e-2 + rtol 1e-2); (b) the bfloat16
+   ``Model.prefill(use_flash=True)`` at B = 1, S = 4096 (xLSTM 1024, and
+   one sLSTM block alone at 4096): K5 must launch once a GQA
+   self-attention layer (0, 2, 4, 4, 0, 48), the logits be finite; wall
+   (median of 3 after a cold run), tokens/s, peak memory; llama4-scout's
+   prefill is profiled (idle share, top kernels, the MoE dispatch ops'
+   device time); (c) ``launch.serve.generate`` at B = 4, prompt 32, 16
+   new tokens (vision with ``img=``, musicgen on (4, 32, 4) prompts):
+   tokens in range, tokens/s; (d) one ``make_train_step`` step at the
+   reduced config: finite loss, every parameter changed, aux > 0 for
+   MoE; and phi3.5-moe's loss gradient at published width, 1
+   superblock, B = 2, S = 512, fp32, capacity factor 100, through K5
+   against its plain version within the train phase's limit, which the
+   route dropping K5's gradient must miss;
 train. drive the training path: (a) the loss gradient of
    smollm-135m at its published width and depth (B = 2, S = 512, fp32)
    through K5 (30 launches, its ``autograd.Function``'s plain backward)
@@ -160,7 +184,9 @@ train. drive the training path: (a) the loss gradient of
    resume of 2 more bit for bit 4 straight (losses and parameters);
 8. time every kernel at its path's shapes against its plain version,
    its bound and, where one exists, one library call (K5 also at
-   llama3-8b's attention shape; K1's lane launch at (8, 8192) also
+   llama3-8b's attention shape, and in its row's ``arch_shapes`` at
+   llama4-scout's (40 / 8 heads, hd 128) and musicgen-medium's (24 / 24,
+   hd 64); K1's lane launch at (8, 8192) also
    against the 8 single-lane launches it replaces, with torch.baddbmm as
    the library call); print each Sinkhorn route's CTAs,
    shared memory a CTA and barriers a call;
@@ -170,12 +196,14 @@ train. drive the training path: (a) the loss gradient of
    (both also timed once unprofiled), one zamba2-7b prefill and one
    full-depth bf16 decode step (B = 4) with
    ``torch.profiler`` and print each one's wall time, device-busy time,
-   idle share and the kernels that take the most device time; then each
-   phase's wall time.
+   idle share and the kernels that take the most device time (with
+   phase 7c's profile of one llama4-scout prefill); then each phase's
+   wall time and phase 7c's per architecture.
 
 The line before the last is the kernel JSON (K1's row also counts its
 launches on phase 4f's ``gw_loss``; its lane launch's row, on phase 4g's
-spar lanes; K5's row its launches in the train run, ``launches_train``;
+spar lanes; K5's row its launches in the train run, ``launches_train``,
+and in each bf16 prefill of phase 7c, ``launches_archs``;
 K6's in the zamba2 gradient, ``launches_train_grad``); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
 package ``repro``.
@@ -361,6 +389,26 @@ RESUME_STEPS, RESUME_BATCH, RESUME_SEQ = 2, 2, 512
 # which the phase also checks
 K5_GRAD_REL = LM_LOGIT_REL
 K6_GRAD_REL = LM_LOGIT_REL_3XTF32
+
+# phase 7c: the six architectures the port added last, at their published
+# widths, each at the depth (superblocks) at which float32 weights and a
+# bfloat16 copy (6 B a parameter) fit one 80 GB card beside phase 7's
+# zamba2-7b, and K5's launches in its bf16 prefill (one a GQA
+# self-attention layer; MLA and xLSTM have none)
+ARCHS = (("minicpm3_4b", 62, 0), ("llama4_scout_17b_a16e", 2, 2),
+         ("phi3_5_moe_42b_a6_6b", 4, 4), ("llama_3_2_vision_90b", 1, 4),
+         ("xlstm_125m", 3, 0), ("musicgen_medium", 48, 48))
+ARCH_FWD_SEQ = 1024        # (a) fp32 forward, 1 superblock, K5 vs plain
+ARCH_PREFILL_SEQ = 4096    # (b) bf16 prefill at B = 1 (vision: 1024 images)
+# xLSTM's sLSTM runs a Python loop of ~17 launches a position: its prefill
+# takes this S, and one sLSTM block is timed alone at ARCH_PREFILL_SEQ
+XLSTM_PREFILL_SEQ = 1024
+ARCH_PREFILL_REPS = 3
+# the MoE models' capacity factor where a run is held to another route:
+# no token's drop may depend on rounding (tests/test_models.py's 100)
+ARCH_MOE_CF = 100.0
+# (d) the gradient at published width through K5 against its plain version
+ARCH_GRAD = ("phi3_5_moe_42b_a6_6b", 2, 512)      # arch, B, S; 1 superblock
 
 
 def moon_points(n: int, seed: int = 0):
@@ -649,6 +697,43 @@ def k5_in_profile(prof) -> dict:
             "k5_backward_ms": bwd_us / 1e3 if bwd_us else None}
 
 
+def loss_grads(torch, model, params, batch, dev, **kw):
+    """The loss of ``model`` on ``batch`` and its gradient with respect to
+    every parameter, as float and tensors; a parameter the route leaves
+    out of the graph (a kernel's output taken without one) gets zeros."""
+    from repro_torch.optim import adamw
+
+    live = adamw.tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, _ = model.loss(live, batch, device=dev, **kw)
+    return float(loss.detach()), torch.autograd.grad(
+        loss, adamw.tree_leaves(live), allow_unused=True,
+        materialize_grads=True)
+
+
+def rel_norm(got, want) -> float:
+    """||got - want|| / ||want|| over all leaves (float64 sums)."""
+    num = sum(float((a.double() - b.double()).pow(2).sum())
+              for a, b in zip(got, want))
+    return math.sqrt(num / sum(float(b.double().pow(2).sum())
+                               for b in want))
+
+
+def dropping_k5_gradient(fa, fa_ops):
+    """A context in which K5's wrapper returns the kernel's output without
+    a graph: the route whose gradient misses attention's q, k, v path."""
+    @contextlib.contextmanager
+    def ctx():
+        launch = fa_ops.flash_attention_cuda
+        fa_ops.flash_attention_cuda = lambda q, k, v, groups: \
+            fa._flash_attention_forward(q.detach(), k.detach(), v.detach(),
+                                        groups)
+        try:
+            yield
+        finally:
+            fa_ops.flash_attention_cuda = launch
+    return ctx()
+
+
 def train_phase(torch, dev, short, short_params) -> dict:
     """Phase "train": the training path on the card (see the module
     docstring). ``short`` is phase 7's zamba2-7b at 1 superblock + tail,
@@ -670,21 +755,11 @@ def train_phase(torch, dev, short, short_params) -> dict:
         return {k: torch.as_tensor(v).to(dev) for k, v in TokenPipeline(
             cfg, seq, batch).global_batch_at(step).items()}
 
-    def loss_grads(model, params, batch, **kw):
-        live = adamw.tree_map(lambda t: t.detach().requires_grad_(True),
-                              params)
-        loss, _ = model.loss(live, batch, device=dev, **kw)
+    def grads_of(model, params, batch, **kw):
         # the dropped routes leave wq, wk and wv out of the graph: zeros
-        return float(loss.detach()), torch.autograd.grad(
-            loss, adamw.tree_leaves(live), allow_unused=True,
-            materialize_grads=True)
+        return loss_grads(torch, model, params, batch, dev, **kw)
 
-    def rel(got, want):
-        """||got - want|| / ||want|| over all leaves (float64 sums)"""
-        num = sum(float((a.double() - b.double()).pow(2).sum())
-                  for a, b in zip(got, want))
-        return math.sqrt(num / sum(float(b.double().pow(2).sum())
-                                   for b in want))
+    rel = rel_norm
 
     def launches():
         torch.cuda.synchronize()
@@ -708,19 +783,13 @@ def train_phase(torch, dev, short, short_params) -> dict:
     batch = batch_of(cfg, TRAIN_GRAD_SEQ, TRAIN_GRAD_BATCH)
     t0 = time.perf_counter()
     reset()
-    loss_k, g_k = loss_grads(model, params, batch, use_flash=True)
+    loss_k, g_k = grads_of(model, params, batch, use_flash=True)
     k5_grad_launches = launches()
     k5_grad_wall = time.perf_counter() - t0
-    loss_p, g_p = loss_grads(model, params, batch, use_flash=True,
-                             use_kernel=False)
-    launch_k5 = fa_ops.flash_attention_cuda
-    fa_ops.flash_attention_cuda = lambda q, k, v, groups: \
-        fa._flash_attention_forward(q.detach(), k.detach(), v.detach(),
-                                    groups)
-    try:
-        loss_d, g_d = loss_grads(model, params, batch, use_flash=True)
-    finally:
-        fa_ops.flash_attention_cuda = launch_k5
+    loss_p, g_p = grads_of(model, params, batch, use_flash=True,
+                           use_kernel=False)
+    with dropping_k5_gradient(fa, fa_ops):
+        loss_d, g_d = grads_of(model, params, batch, use_flash=True)
     attn_idx = [i for i, n in enumerate(leaf_names(params))
                 if "/attn/w" in n]
     k5 = {"kernel": rel(g_k, g_p), "dropped": rel(g_d, g_p),
@@ -737,15 +806,15 @@ def train_phase(torch, dev, short, short_params) -> dict:
     zbatch = batch_of(short.cfg, TRAIN_GRAD_SEQ, TRAIN_GRAD_BATCH)
     t0 = time.perf_counter()
     reset()
-    zl_k, zg_k = loss_grads(short, zparams, zbatch)
+    zl_k, zg_k = grads_of(short, zparams, zbatch)
     k6_grad_launches = launches()
     k6_grad_wall = time.perf_counter() - t0
-    zl_p, zg_p = loss_grads(short, zparams, zbatch, use_kernel=False)
+    zl_p, zg_p = grads_of(short, zparams, zbatch, use_kernel=False)
     launch_k6 = ssm_mod.ssd_intra
     ssm_mod.ssd_intra = lambda *a, device: ssd._ssd_intra_forward(
         *(t.detach().float().contiguous() for t in a))
     try:
-        zl_d, zg_d = loss_grads(short, zparams, zbatch)
+        zl_d, zg_d = grads_of(short, zparams, zbatch)
     finally:
         ssm_mod.ssd_intra = launch_k6
     k6 = {"kernel": rel(zg_k, zg_p), "dropped": rel(zg_d, zg_p),
@@ -892,6 +961,295 @@ def train_phase(torch, dev, short, short_params) -> dict:
                              "the straight one")
     return {"flash_attention": train_launches["flash_attention"],
             "ssd_intra": k6_grad_launches["ssd_intra"]}
+
+
+# the torch ops of the MoE dispatch (routing, slots, the token <-> slot
+# hops); aten::index also serves the embedding lookup
+MOE_DISPATCH_OPS = ("aten::sort", "aten::one_hot", "aten::cumsum",
+                    "aten::gather", "aten::index_add_", "aten::index_put",
+                    "aten::index", "aten::where")
+
+
+def dispatch_in_profile(prof) -> dict:
+    """Device time under each MoE dispatch op of a profiled run (the op's
+    kernels), and their sum, in ms."""
+    def us(e):                       # device_* names; cuda_* before them
+        value = getattr(e, "device_time_total", None)
+        return e.cuda_time_total if value is None else value
+
+    ops = {e.key: us(e) / 1e3 for e in prof.key_averages()
+           if e.key in MOE_DISPATCH_OPS}
+    return {"moe_dispatch_ms": ops,
+            "moe_dispatch_total_ms": sum(ops.values())}
+
+
+def arch_phase(torch, dev) -> dict:
+    """Phase 7c: each architecture of ``ARCHS`` in turn (see the module
+    docstring), its weights freed before the next. Returns K5's launches
+    in each bf16 prefill, llama4-scout's profiled prefill and the
+    walls."""
+    from repro_torch.configs import get_arch, get_reduced, scale_down
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.launch import steps as train_steps
+    from repro_torch.models import Model
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.optim import adamw
+
+    def k5():
+        torch.cuda.synchronize()
+        return fa.LAUNCHES["flash_attention"]
+
+    def depth(cfg, n_sb, **kw):
+        return scale_down(cfg, n_superblocks=n_sb, n_layers=n_sb * len(
+            cfg.block_pattern) + len(cfg.tail_blocks), **kw)
+
+    def attn_layers(cfg):
+        if cfg.attn_type == "mla":
+            return 0
+        return cfg.resolved_superblocks * sum(
+            k in ("attn", "moe") for k in cfg.block_pattern)
+
+    def draw_tokens(cfg, gen, B, S):
+        shape = (B, S, cfg.n_codebooks) if cfg.n_codebooks > 1 else (B, S)
+        return torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                             device=dev)
+
+    def draw_img(cfg, gen, B):
+        if not cfg.n_image_tokens:
+            return None
+        return torch.randn((B, cfg.n_image_tokens, cfg.d_model),
+                           generator=gen, device=dev)
+
+    out = {"launches": {}, "walls_s": {}, "llama4_prefill_profile": None}
+    for name, n_sb, want_k5 in ARCHS:
+        t_arch = time.perf_counter()
+        full = get_arch(name)
+        cfg = depth(full, n_sb)
+        model = Model(cfg)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = model.init(gen, device=dev)                # float32
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in leaves(params))
+        row = {"arch": cfg.name, "superblocks": n_sb,
+               "of_published": full.resolved_superblocks,
+               "n_params": n_params, "d_model": cfg.d_model}
+
+        # (a) one fp32 forward at 1 superblock through K5 and through its
+        # plain version (MoE at capacity factor 100)
+        short = Model(depth(cfg, 1, capacity_factor=ARCH_MOE_CF
+                            if cfg.n_experts else cfg.capacity_factor))
+        sp = {**params, "blocks": params["blocks"][:1]}
+        toks = draw_tokens(cfg, gen, 1, ARCH_FWD_SEQ)
+        img1 = draw_img(cfg, gen, 1)
+        with torch.no_grad():
+            fa.reset_launch_counts()
+            lk = short.forward(sp, toks, img=img1, use_flash=True)[0]
+            a_k5 = k5()
+            lp = short.forward(sp, toks, img=img1, use_flash=True,
+                               use_kernel=False)[0]
+        a_err = float((lk - lp).abs().max() / lp.abs().max())
+        a_ok = bool(lk.isfinite().all())
+        del lk, lp
+        if a_k5 != attn_layers(short.cfg) or not a_ok \
+                or not a_err <= LM_LOGIT_REL:
+            raise AssertionError(f"{name} (a): K5 launches {a_k5} "
+                                 f"(expected {attn_layers(short.cfg)}), "
+                                 f"max rel err {a_err:.3g} (bound "
+                                 f"{LM_LOGIT_REL}), finite {a_ok}")
+        row["a_fp32_forward_1_superblock"] = {
+            "seq": ARCH_FWD_SEQ, "k5_launches": a_k5,
+            "max_rel_err_vs_plain": a_err, "bound": LM_LOGIT_REL}
+
+        # (c) teacher-forced decode against the forward, 1 superblock, fp32
+        prompt = toks[:, :DECODE_PROMPT]
+        with torch.no_grad():
+            fa.reset_launch_counts()
+            fwd = short.forward(sp, prompt, img=img1, use_flash=True)[0]
+            c_k5 = k5()
+            cache = short.init_cache(1, DECODE_PROMPT, dtype=torch.float32,
+                                     device=dev)
+            steps = [short.decode_step(sp, prompt[:, t:t + 1], cache, t,
+                                       img=img1, act_dtype=torch.float32)[0]
+                     for t in range(DECODE_PROMPT)]
+        dec = torch.cat(steps, dim=1)
+        excess = float(((dec - fwd).abs() - DECODE_RTOL * fwd.abs()).max())
+        dec_dist = float((dec - fwd).abs().max())
+        if excess > DECODE_ATOL or not bool(dec.isfinite().all()) \
+                or k5() != c_k5:
+            raise AssertionError(f"{name} (c): decode vs forward max |diff| "
+                                 f"{dec_dist}, excess over rtol "
+                                 f"{DECODE_RTOL}: {excess} (atol "
+                                 f"{DECODE_ATOL}); decode launched K5")
+        row["c_decode_vs_forward"] = {
+            "tokens": DECODE_PROMPT, "max_abs_diff": dec_dist,
+            "max_abs_forward_logit": float(fwd.abs().max()),
+            "bound": {"atol": DECODE_ATOL, "rtol": DECODE_RTOL}}
+        del sp, toks, fwd, dec, steps, cache
+
+        # (b) the bf16 prefill at the table's depth
+        pb = model._cast_params(params, torch.bfloat16, dev)
+        del params
+        torch.cuda.empty_cache()
+        S = XLSTM_PREFILL_SEQ if name == "xlstm_125m" else ARCH_PREFILL_SEQ
+        toks = draw_tokens(cfg, gen, 1, S)
+        img = draw_img(cfg, gen, 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, cache = model.prefill(pb, toks, img=img, use_flash=True)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        b_k5 = k5()
+        want_shape = (1, 1) + ((cfg.n_codebooks,) if cfg.n_codebooks > 1
+                               else ()) + (cfg.vocab_size,)
+        if b_k5 != want_k5 or b_k5 != attn_layers(cfg) \
+                or tuple(logits.shape) != want_shape \
+                or not bool(logits.isfinite().all()):
+            raise AssertionError(f"{name} (b): K5 launches {b_k5} (expected "
+                                 f"{want_k5}), logits {tuple(logits.shape)},"
+                                 f" finite {bool(logits.isfinite().all())}")
+        del logits, cache
+        walls = []
+        for _ in range(ARCH_PREFILL_REPS):
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits, cache = model.prefill(pb, toks, img=img,
+                                              use_flash=True)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            del logits, cache
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        prefill_s = sorted(walls)[len(walls) // 2]
+        out["launches"][name] = b_k5
+        row["b_bf16_prefill"] = {
+            "batch": 1, "seq": S, "images": cfg.n_image_tokens or None,
+            "k5_launches": b_k5, "first_s": first_s, "walls_s": walls,
+            "median_s": prefill_s, "tokens_per_s": S / prefill_s,
+            "peak_memory_gib_above_start": peak,
+            "params_gib": sum(t.numel() * t.element_size()
+                              for t in leaves(pb)) / 2**30}
+        if name == "llama4_scout_17b_a16e":
+            def prefill_once():
+                with torch.no_grad():
+                    return model.prefill(pb, toks, img=img,
+                                         use_flash=True)[0].sum().item()
+            out["llama4_prefill_profile"] = profile_solve(
+                torch, prefill_once, top=16, extra=dispatch_in_profile)
+        if name == "xlstm_125m":
+            # one sLSTM block alone at the full prefill length
+            blk = next(i for i, k in enumerate(cfg.block_pattern)
+                       if k == "slstm")
+            lstm_p = pb["blocks"][0][f"b{blk}"]["lstm"]
+            x = torch.randn((1, ARCH_PREFILL_SEQ, cfg.d_model),
+                            generator=gen, device=dev).to(torch.bfloat16)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                ssm_mod.slstm_block(lstm_p, cfg, x)
+            torch.cuda.synchronize()
+            row["slstm_block_loop"] = {
+                "seq": ARCH_PREFILL_SEQ, "wall_s": time.perf_counter() - t0}
+            del x
+
+        # (c) generate at the table's depth, bf16: B = 4, prompt 32, 16 new
+        prompts = draw_tokens(cfg, gen, DECODE_BATCH, DECODE_PROMPT)
+        img4 = draw_img(cfg, gen, DECODE_BATCH)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            seqs = lm_serve.generate(model, pb, prompts, DECODE_NEW,
+                                     act_dtype=torch.bfloat16, img=img4)
+        torch.cuda.synchronize()
+        gen_wall = time.perf_counter() - t0
+        new = seqs[:, DECODE_PROMPT:]
+        if tuple(seqs.shape) != (DECODE_BATCH, DECODE_PROMPT + DECODE_NEW) \
+                + tuple(prompts.shape[2:]) \
+                or not torch.equal(seqs[:, :DECODE_PROMPT], prompts) \
+                or not bool(((new >= 0) & (new < cfg.vocab_size)).all()):
+            raise AssertionError(f"{name} (c): generate gave "
+                                 f"{tuple(seqs.shape)} or tokens out of "
+                                 f"range")
+        row["c_generate"] = {
+            "batch": DECODE_BATCH, "prompt": DECODE_PROMPT,
+            "new_tokens": DECODE_NEW, "wall_s": gen_wall,
+            "tokens_per_s": DECODE_BATCH * DECODE_NEW / gen_wall}
+        del pb, seqs, prompts, img, img1, img4, toks, model, short
+        torch.cuda.empty_cache()
+
+        # (d) one train step at the CPU tests' reduced config
+        rcfg = get_reduced(name)
+        rmodel = Model(rcfg)
+        rp = rmodel.init(torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in TokenPipeline(
+            rcfg, 32, 2).global_batch_at(0).items()}
+        step_fn = train_steps.make_train_step(
+            rmodel, act_dtype=torch.float32, remat=True, use_flash=True,
+            warmup=2, total_steps=10)
+        new_p, _, m = step_fn(rp, adamw.init(rp), batch)
+        m = {k: float(v) for k, v in m.items()}
+        changed = all(not torch.equal(x, y) for x, y in zip(
+            adamw.tree_leaves(rp), adamw.tree_leaves(new_p)))
+        if not math.isfinite(m["loss"]) or not changed \
+                or (m["aux"] > 0) != bool(rcfg.n_experts):
+            raise AssertionError(f"{name} (d): train step {m}, every "
+                                 f"parameter changed: {changed}")
+        row["d_train_step_reduced"] = m
+        del rp, new_p, batch, rmodel
+
+        if name == ARCH_GRAD[0]:
+            row["d_gradient"] = moe_gradient(torch, dev, full)
+        out["walls_s"][name] = row["wall_s"] = time.perf_counter() - t_arch
+        print(json.dumps({"arch_path": row}))
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_gradient(torch, dev, full) -> dict:
+    """Phase 7c (d): the loss gradient of ``full`` at published width, 1
+    superblock, capacity factor 100, B x S of ``ARCH_GRAD``, fp32, through
+    K5 against the gradient through K5's plain version, within
+    ``K5_GRAD_REL``; the route that drops K5's gradient must miss it."""
+    from repro_torch.configs import scale_down
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import Model
+
+    _, B, S = ARCH_GRAD
+    cfg = scale_down(full, n_superblocks=1, n_layers=len(full.block_pattern),
+                     capacity_factor=ARCH_MOE_CF)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(1),
+                        device=dev)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in TokenPipeline(
+        cfg, S, B).global_batch_at(0).items()}
+    t0 = time.perf_counter()
+    fa.reset_launch_counts()
+    loss_k, g_k = loss_grads(torch, model, params, batch, dev,
+                             use_flash=True)
+    torch.cuda.synchronize()
+    launches = fa.LAUNCHES["flash_attention"]
+    wall = time.perf_counter() - t0
+    loss_p, g_p = loss_grads(torch, model, params, batch, dev,
+                             use_flash=True, use_kernel=False)
+    with dropping_k5_gradient(fa, fa_ops):
+        loss_d, g_d = loss_grads(torch, model, params, batch, dev,
+                                 use_flash=True)
+    res = {"batch": B, "seq": S, "limit": K5_GRAD_REL,
+           "kernel": rel_norm(g_k, g_p), "dropped": rel_norm(g_d, g_p),
+           "loss": {"kernel": loss_k, "plain": loss_p, "dropped": loss_d},
+           "k5_launches": launches, "wall_s": wall}
+    del g_k, g_p, g_d, params
+    torch.cuda.empty_cache()
+    if launches != 1 or not res["kernel"] <= K5_GRAD_REL < res["dropped"]:
+        raise AssertionError(f"{cfg.name} gradient: {res}")
+    return res
 
 
 def leaf_names(tree, prefix="") -> list:
@@ -2614,6 +2972,10 @@ def main(parent: Path | None = None) -> int:
     del seqs, warm_seqs, prompts, finite
     torch.cuda.empty_cache()
 
+    # -- 7c. the other six architectures ------------------------------------
+    stamps.append(("7c", time.perf_counter()))
+    arch_out = arch_phase(torch, dev)
+
     # -- train. the training path: smollm-135m, K5 and K6 gradients ---------
     stamps.append(("train", time.perf_counter()))
     train_launches = train_phase(torch, dev, short, {
@@ -2805,10 +3167,14 @@ def main(parent: Path | None = None) -> int:
         print(json.dumps({"sinkhorn_ms_parent_vs_change": k4_turns}))
 
     # flash attention at zamba2-7b's shape (the main path's) and, off the
-    # path, llama3-8b's attention shape; bf16, B = 1, S = 4096
+    # path, llama3-8b's attention shape; then phase 7c's: llama4-scout's
+    # (a group of 5) and musicgen-medium's (hd 64); bf16, B = 1, S = 4096
     import torch.nn.functional as F
+    k5_arch_shapes = []
     for arch, H, K, hd in (("zamba2-7b", cfg.n_heads, cfg.n_kv_heads,
-                            cfg.resolved_head_dim), ("llama3-8b", 32, 8, 128)):
+                            cfg.resolved_head_dim), ("llama3-8b", 32, 8, 128),
+                           ("llama4-scout-17b-a16e", 40, 8, 128),
+                           ("musicgen-medium", 24, 24, 64)):
         S = LM_SEQ
         q = normal(H, S, hd, dtype=torch.bfloat16)
         k = normal(K, S, hd, dtype=torch.bfloat16)
@@ -2828,16 +3194,23 @@ def main(parent: Path | None = None) -> int:
                            "flash_attention.py:61",
                "launches": lm_launches["flash_attention"],
                "launches_train": train_launches["flash_attention"],
+               "launches_archs": arch_out["launches"],
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": lib_ms}
+        shape = f"{arch} B=1 S={S} H={H} K={K} hd={hd} bf16"
         if arch == "zamba2-7b":
             kernels.append(row)
+            k5_row = row
+        elif arch == "llama3-8b":
+            other_shapes.append({**row, "shape": shape, "launches": None})
         else:
-            other_shapes.append({**row, "shape": f"{arch} B=1 S={S} H={H} "
-                                                 f"K={K} hd={hd} bf16",
-                                 "launches": None})
+            k5_arch_shapes.append({
+                "shape": shape, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": lib_ms})
         del q, k, v
+    k5_row["arch_shapes"] = k5_arch_shapes
 
     # the SSD intra-chunk block at zamba2-7b's layer shape (B = 1, S = 4096)
     Gc, kc = LM_BATCH * LM_SEQ // cfg.ssm_chunk, cfg.ssm_chunk
@@ -2926,7 +3299,10 @@ def main(parent: Path | None = None) -> int:
             "unprofiled_wall_s": quantized_cut_wall},
         "zamba2_prefill": profile_solve(torch, lambda: model.prefill(
             params, tokens, use_flash=True)[0].sum().item(), top=12),
-        "zamba2_decode_step": profile_solve(torch, decode_one, top=12)}}))
+        "zamba2_decode_step": profile_solve(torch, decode_one, top=12),
+        # taken in phase 7c, while its weights were on the card
+        "llama4_scout_prefill": arch_out["llama4_prefill_profile"]}}))
+    print(json.dumps({"arch_walls_s": arch_out["walls_s"]}))
 
     stamps.append(("end", time.perf_counter()))
     print(json.dumps({"phase_wall_s": {

@@ -3,7 +3,6 @@ GW solver config (the port's copies)."""
 from repro_torch.configs.base import (
     ARCH_IDS,
     CLI_ALIASES,
-    PORTED_IDS,
     SHAPES,
     ArchConfig,
     ShapeConfig,

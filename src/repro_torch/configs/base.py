@@ -1,10 +1,10 @@
 """Architecture / shape configuration dataclasses.
 
 The port's own copy of the reference's ``configs/base.py`` (which imports
-no JAX, but the port imports nothing of the reference). Every ported
-architecture has a module ``repro_torch/configs/<id>.py`` exporting
-``CONFIG`` (published widths) and ``reduced()`` (CPU test size). The other
-ids of ``ARCH_IDS`` are not ported yet (ROADMAP item 17b) and raise.
+no JAX, but the port imports nothing of the reference). Every id of
+``ARCH_IDS`` has a module ``repro_torch/configs/<id>.py`` exporting
+``CONFIG`` (published widths) and ``reduced()`` (CPU test size); an
+unknown id raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -125,18 +125,10 @@ CLI_ALIASES = {
 }
 
 
-# the ids whose modules the port has; the rest wait for ROADMAP item 17b
-PORTED_IDS = ("llama3_8b", "zamba2_7b", "smollm_135m", "phi4_mini_3_8b")
-
-
 def _module(name: str):
     mod_name = CLI_ALIASES.get(name, name).replace("-", "_").replace(".", "_")
     if mod_name not in ARCH_IDS:
         raise ValueError(f"unknown architecture {name!r}")
-    if mod_name not in PORTED_IDS:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported yet (ROADMAP item 17b); "
-            f"ported: {PORTED_IDS}")
     return importlib.import_module(f"repro_torch.configs.{mod_name}")
 
 

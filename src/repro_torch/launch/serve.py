@@ -10,7 +10,10 @@ teacher-forced through decode steps on a zero cache, then greedy (or
 sampled) decoding (:func:`generate`), and with ``--metric gw`` the GW
 distance between the hidden geometries of the batch and the batch
 reversed (:func:`gw_similarity`, the paper's technique as a serving
-feature). Architectures outside ``configs.PORTED_IDS`` raise.
+feature). Every architecture runs, but the two whose reference
+``lm_main`` fails (it draws 2-D prompts and passes no image embeddings):
+a codebook model (musicgen) and a VLM raise, naming that failure; their
+``generate`` takes (B, S0, n_codebooks) prompts and ``img=``.
 
 Both run on the CUDA card unless ``--device`` says otherwise.
 
@@ -97,16 +100,19 @@ def gw_main(args) -> None:
 # ---------------------------------------------------------------------------
 
 def generate(model, params, prompts, max_new: int, act_dtype=torch.float32,
-             temperature: float = 0.0, generator=None, device=None):
-    """prompts: (B, S0) int. Greedy (or sampled) continuation; returns the
-    (B, S0 + max_new) int64 tokens.
+             temperature: float = 0.0, img=None, generator=None,
+             device=None):
+    """prompts: (B, S0) int, or (B, S0, n_codebooks) for a codebook model;
+    ``img``: a VLM's image embeddings (B, N_img, D), passed to every
+    decode step. Greedy (or sampled) continuation; returns the (B, S0 +
+    max_new) (or (B, S0 + max_new, n_codebooks)) int64 tokens.
 
-    Decode runs against a zero cache of length S0 + max_new in
+    Decode runs against a fresh cache of length S0 + max_new in
     ``act_dtype``: the prompt is teacher-forced through decode steps (as
     the reference does), then each new token is the argmax of the last
-    logits, or with ``temperature > 0`` a draw from their softmax at that
-    temperature (``torch.multinomial`` on ``generator``). Like the
-    reference, the last token is decoded too.
+    logits (one a codebook), or with ``temperature > 0`` a draw from their
+    softmax at that temperature (``torch.multinomial`` on ``generator``).
+    Like the reference, the last token is decoded too.
     """
     dev = dispatch.resolve_device(device)
     prompts = prompts.to(dev)
@@ -116,49 +122,75 @@ def generate(model, params, prompts, max_new: int, act_dtype=torch.float32,
     logits = None
     for t in range(S0):
         logits, cache = model.decode_step(params, prompts[:, t:t + 1],
-                                          cache, t, act_dtype=act_dtype,
-                                          device=dev)
+                                          cache, t, img=img,
+                                          act_dtype=act_dtype, device=dev)
     out = [prompts.long()]
     for t in range(S0, total):
+        last = logits[:, -1]                   # (B, V) or (B, C, V)
         if temperature > 0:
-            probs = torch.softmax(logits[:, -1].float() / temperature, -1)
-            nxt = torch.multinomial(probs, 1, generator=generator)
+            probs = torch.softmax(last.float() / temperature, -1)
+            nxt = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1,
+                                    generator=generator)
+            nxt = nxt.reshape(last.shape[:-1])[:, None]
         else:
-            nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            nxt = torch.argmax(last, dim=-1)[:, None]
         out.append(nxt)
-        logits, cache = model.decode_step(params, nxt, cache, t,
+        logits, cache = model.decode_step(params, nxt, cache, t, img=img,
                                           act_dtype=act_dtype, device=dev)
     return torch.cat(out, dim=1)
 
 
 def gw_similarity(model, params, batch_a, batch_b, s: int = 32,
                   act_dtype=torch.float32, generator=None, draws=None,
-                  device=None):
+                  img=None, device=None):
     """GW distance between the hidden geometries of two request batches:
-    ``Model.forward`` of each (through K6 in every Mamba2 layer on the
-    card), then :func:`~repro_torch.core.align.gw_alignment_loss` with
-    s_r = s_c = ``s``. Its draws come from ``generator`` (default: seed 0
-    on the hidden states' device, as the reference fixes ``PRNGKey(0)``)
-    or ``draws``."""
+    ``Model.forward`` of each (through K5 or K6 where the architecture has
+    them, on the card), then
+    :func:`~repro_torch.core.align.gw_alignment_loss` with s_r = s_c =
+    ``s``. Its draws come from ``generator`` (default: seed 0 on the
+    hidden states' device, as the reference fixes ``PRNGKey(0)``) or
+    ``draws``. ``img`` (a VLM's image embeddings) goes to both forwards;
+    the reference's has no such argument, so it fails for a VLM."""
     from repro_torch.core.align import gw_alignment_loss
 
-    _, h_a, _ = model.forward(params, batch_a, act_dtype=act_dtype,
+    _, h_a, _ = model.forward(params, batch_a, img=img, act_dtype=act_dtype,
                               device=device)
-    _, h_b, _ = model.forward(params, batch_b, act_dtype=act_dtype,
+    _, h_b, _ = model.forward(params, batch_b, img=img, act_dtype=act_dtype,
                               device=device)
     if generator is None and draws is None:
         generator = torch.Generator(device=h_a.device).manual_seed(0)
     return gw_alignment_loss(generator, h_a, h_b, s_r=s, s_c=s, draws=draws)
 
 
+# the reference's lm_main draws (B, S) prompts and passes no image
+# embeddings: these are its failures on the two architectures that need
+# more (``python -m repro.launch.serve --mode lm --arch <id> --reduced``)
+LM_MAIN_FAILS = {
+    "codebooks": "ValueError: not enough values to unpack (expected 3, "
+                 "got 2)",
+    "image": "TypeError: unsupported operand type(s) for @: 'NoneType' ...",
+}
+
+
 def lm_main(args) -> None:
     """Random weights (seed 0) and random prompts (seed 7), generate, and
-    optionally the GW similarity of the batch and the batch reversed."""
+    optionally the GW similarity of the batch and the batch reversed.
+    A codebook model or a VLM raises ``ValueError``: the reference's
+    ``lm_main`` fails on both, and the CLI adds no input it lacks."""
     from repro_torch.configs import base as cb
     from repro_torch.models import Model
 
     cfg = cb.get_reduced(args.arch) if args.reduced else cb.get_arch(
         args.arch)
+    if cfg.n_codebooks > 1 or cfg.n_image_tokens > 0:
+        need, fail = (("(B, S, n_codebooks) prompts", "codebooks")
+                      if cfg.n_codebooks > 1 else
+                      ("image embeddings (img=)", "image"))
+        raise ValueError(
+            f"--mode lm draws (B, S) prompts and no image embeddings; "
+            f"{cfg.name} needs {need}. The reference's lm_main fails here "
+            f"too ({LM_MAIN_FAILS[fail]}); call launch.serve.generate "
+            f"directly")
     dev = dispatch.resolve_device(args.device)
     model = Model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0),

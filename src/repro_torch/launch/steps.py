@@ -36,8 +36,9 @@ def make_train_step(model: Model, base_lr: float = 3e-4, warmup: int = 100,
     """``train_step(params, opt_state, batch, gw_draws=None)`` ->
     (new_params, new_opt_state, metrics) with metrics ``loss``, ``ce``,
     ``aux``, ``gnorm`` (before clipping) and ``lr``, 0-d tensors. The
-    parameters (float tensors on one device) are not modified; the new
-    ones are new tensors."""
+    batch's ``image_embeds``, where a VLM's batch has them, reach the
+    loss with it. The parameters (float tensors on one device) are not
+    modified; the new ones are new tensors."""
     lr_fn = adamw.cosine_schedule(base_lr, warmup, total_steps)
 
     def train_step(params, opt_state, batch, gw_draws=None):
@@ -70,6 +71,7 @@ def make_prefill_step(model: Model, act_dtype=torch.bfloat16,
                       use_flash: bool = False):
     def prefill_step(params, batch):
         return model.prefill(params, torch.as_tensor(batch["tokens"]),
+                             img=batch.get("image_embeds"),
                              act_dtype=act_dtype, use_flash=use_flash,
                              device=adamw.tree_leaves(params)[0].device)
     return prefill_step
@@ -79,6 +81,7 @@ def make_decode_step(model: Model, act_dtype=torch.bfloat16):
     def decode_step(params, batch):
         return model.decode_step(params, torch.as_tensor(batch["tokens"]),
                                  batch["cache"], int(batch["index"]),
+                                 img=batch.get("image_embeds"),
                                  act_dtype=act_dtype,
                                  device=adamw.tree_leaves(params)[0].device)
     return decode_step

@@ -19,6 +19,10 @@ On the card a resumed run matches a straight one bit for bit only under
 ``CUBLAS_WORKSPACE_CONFIG`` set before the first cuBLAS call): the
 embedding's backward otherwise sums with atomics.
 
+Every id of ``configs.ARCH_IDS`` trains: the pipeline's batches carry a
+VLM's image embeddings and musicgen's codebook tokens to ``Model.loss``,
+whose aux term weighs the MoE blocks' Switch loss.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --steps 20 --batch 8 --seq 512 --use-flash --gw-align --ckpt-dir D

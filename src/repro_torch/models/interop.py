@@ -2,9 +2,12 @@
 
 The reference's ``Model.init`` pytree has the scanned superblocks stacked
 on a leading axis (``blocks``), the tail as a list, and dicts elsewhere;
-the port keeps ``blocks`` as a list with one dict per superblock. With the
-same parameters on both sides the two packages compute the same function,
-which the parity tests hold them to.
+the port keeps ``blocks`` as a list with one dict per superblock. Every
+other leaf crosses as it is: the MoE experts stacked (E, d, f), the MLA
+latents' projections and norms, cross-attention's ``gate``, sLSTM's
+recurrent ``r`` (4, H, hd, hd), ``codebook_embeds`` and ``heads``. With
+the same parameters on both sides the two packages compute the same
+function, which the parity tests hold them to.
 """
 from __future__ import annotations
 

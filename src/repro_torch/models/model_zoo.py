@@ -1,23 +1,29 @@
-"""The decoder stack for block kinds ``attn`` and ``mamba2`` with the
+"""The decoder stack for every block kind of the reference, with the
 zamba2-style shared block: the port of ``repro.models.model_zoo``.
 
 A model is ``n_superblocks`` repetitions of a superblock (the config's
 ``block_pattern``), optional tail blocks, and an optional shared
-attention + MLP block invoked once after each superblock (Zamba2). The
-reference scans the superblocks with ``lax.scan``; here they run as a
+attention + MLP block invoked once after each superblock (Zamba2). Block
+kinds: ``attn`` (self-attention + MLP), ``moe`` (self-attention + MoE
+MLP), ``xattn`` (cross-attention to the image embeddings + MLP),
+``mamba2``, ``mlstm`` and ``slstm``; self-attention is GQA or MLA as the
+config's ``attn_type`` says. Multi-codebook models (musicgen) sum one
+embedding a codebook at the input and have one head a codebook.
+The reference scans the superblocks with ``lax.scan``; here they run as a
 Python loop, as the reference's ``unroll_layers`` path does, and the
 caches come back stacked over superblocks as the scan returns them.
 ``sharding_ctx`` constraints are identities on one card and are left out.
 
-Entry points: ``init``, ``forward`` (returns logits, final hidden, aux),
-``loss`` (the causal LM loss, optionally with the GW alignment loss),
-``prefill`` (last-position logits and the fresh caches), ``init_cache``
-(zero caches) and ``decode_step`` (one token against the caches, which it
-updates in place). They run on the CUDA card unless ``device="cpu"`` is
-given, and raise without a card. ``forward(remat=True)`` recomputes each
-superblock in the backward (``torch.utils.checkpoint``), where the
-reference checkpoints its scan body. MLA and the ``moe``, ``xattn``,
-``mlstm``, ``slstm`` kinds wait for ROADMAP item 17b.
+Entry points: ``init``, ``forward`` (returns logits, final hidden and the
+MoE blocks' aux loss), ``loss`` (the causal LM loss with 0.01·aux,
+optionally with the GW alignment loss), ``prefill`` (last-position logits
+and the fresh caches), ``init_cache`` and ``decode_step`` (one token
+against the caches, which it updates in place). ``img`` carries a VLM's
+image embeddings (B, N_img, D) to its cross-attention blocks. They run on
+the CUDA card unless ``device="cpu"`` is given, and raise without a card.
+``forward(remat=True)`` recomputes each superblock in the backward
+(``torch.utils.checkpoint``), where the reference checkpoints its scan
+body.
 """
 from __future__ import annotations
 
@@ -40,63 +46,101 @@ from repro_torch.models.layers import (
     rmsnorm_params,
 )
 from repro_torch.models.module import Builder
-
-PORTED_KINDS = ("attn", "mamba2")
-_LATER = "is not ported yet (ROADMAP item 17b)"
-
-
-def _check_ported(cfg: ArchConfig):
-    for kind in cfg.block_pattern + cfg.tail_blocks:
-        if kind not in PORTED_KINDS:
-            raise NotImplementedError(f"block kind {kind!r} {_LATER}")
-    if cfg.attn_type != "gqa":
-        raise NotImplementedError(f"attention type {cfg.attn_type!r} {_LATER}")
-    if cfg.n_codebooks > 1:
-        raise NotImplementedError(f"multi-codebook heads {_LATER}")
+from repro_torch.models.moe import moe_mlp, moe_params
 
 
 # ---------------------------------------------------------------------------
 # Block level
 # ---------------------------------------------------------------------------
 
+def _attn_params(b: Builder, cfg: ArchConfig):
+    return attn.mla_params(b, cfg) if cfg.attn_type == "mla" \
+        else attn.gqa_params(b, cfg)
+
+
+def _attn_apply(p, cfg, x, positions, cache, cache_index, use_flash,
+                use_kernel):
+    if cfg.attn_type == "mla":
+        return attn.mla_attention(p, cfg, x, positions, cache=cache,
+                                  cache_index=cache_index,
+                                  use_flash=use_flash)
+    return attn.gqa_attention(p, cfg, x, positions, cache=cache,
+                              cache_index=cache_index, use_flash=use_flash,
+                              use_kernel=use_kernel)
+
+
 def block_params(b: Builder, cfg: ArchConfig, kind: str):
     d = cfg.d_model
     if kind == "attn":
-        return {"n1": rmsnorm_params(b, d), "attn": attn.gqa_params(b, cfg),
+        return {"n1": rmsnorm_params(b, d), "attn": _attn_params(b, cfg),
+                "n2": rmsnorm_params(b, d), "mlp": mlp_params(b, d, cfg.d_ff)}
+    if kind == "moe":
+        return {"n1": rmsnorm_params(b, d), "attn": _attn_params(b, cfg),
+                "n2": rmsnorm_params(b, d), "moe": moe_params(b, cfg)}
+    if kind == "xattn":
+        return {"n1": rmsnorm_params(b, d), "xattn": attn.xattn_params(b, cfg),
                 "n2": rmsnorm_params(b, d), "mlp": mlp_params(b, d, cfg.d_ff)}
     if kind == "mamba2":
         return {"n1": rmsnorm_params(b, d), "mamba": ssm.mamba2_params(b, cfg)}
-    raise NotImplementedError(f"block kind {kind!r} {_LATER}")
+    if kind == "mlstm":
+        return {"n1": rmsnorm_params(b, d), "lstm": ssm.mlstm_params(b, cfg)}
+    if kind == "slstm":
+        return {"n1": rmsnorm_params(b, d), "lstm": ssm.slstm_params(b, cfg)}
+    raise ValueError(kind)
 
 
 def block_apply(p, cfg: ArchConfig, kind: str, x, positions, use_flash,
-                use_kernel, cache=None, cache_index=None):
-    """Returns (x, new_cache). The ported kinds add no auxiliary loss.
-    ``cache`` is the block's decode cache (None for train and prefill)."""
+                use_kernel, cache=None, cache_index=None, img=None):
+    """Returns (x, new_cache, aux loss). ``cache`` is the block's decode
+    cache (None for train and prefill); ``img`` the image embeddings of
+    the ``xattn`` blocks. Only ``moe`` blocks have an aux loss (None for
+    the others, where the reference adds 0); they drop no token in decode
+    (S == 1), as the reference's do."""
     eps = cfg.norm_eps
-    if kind == "attn":
-        h, new_cache = attn.gqa_attention(
-            p["attn"], cfg, rmsnorm(p["n1"], x, eps), positions,
-            cache=cache, cache_index=cache_index, use_flash=use_flash,
-            use_kernel=use_kernel)
+    if kind in ("attn", "moe"):
+        h, new_cache = _attn_apply(p["attn"], cfg, rmsnorm(p["n1"], x, eps),
+                                   positions, cache, cache_index, use_flash,
+                                   use_kernel)
         x = x + h.to(x.dtype)
+        if kind == "attn":
+            x = x + mlp(p["mlp"], rmsnorm(p["n2"], x, eps)).to(x.dtype)
+            return x, new_cache, None
+        h, aux = moe_mlp(p["moe"], cfg, rmsnorm(p["n2"], x, eps),
+                         no_drop=(x.shape[1] == 1))
+        return x + h.to(x.dtype), new_cache, aux
+    if kind == "xattn":
+        x = x + attn.cross_attention(p["xattn"], cfg,
+                                     rmsnorm(p["n1"], x, eps), img).to(x.dtype)
         x = x + mlp(p["mlp"], rmsnorm(p["n2"], x, eps)).to(x.dtype)
-        return x, new_cache
+        return x, (), None
     if kind == "mamba2":
         h, new_state = ssm.mamba2_block(p["mamba"], cfg,
                                         rmsnorm(p["n1"], x, eps),
                                         state=cache, use_kernel=use_kernel)
-        return x + h.to(x.dtype), new_state
-    raise NotImplementedError(f"block kind {kind!r} {_LATER}")
+        return x + h.to(x.dtype), new_state, None
+    if kind in ("mlstm", "slstm"):
+        fn = ssm.mlstm_block if kind == "mlstm" else ssm.slstm_block
+        h, new_state = fn(p["lstm"], cfg, rmsnorm(p["n1"], x, eps),
+                          state=cache)
+        return x + h.to(x.dtype), new_state, None
+    raise ValueError(kind)
 
 
 def block_cache_spec(cfg: ArchConfig, kind: str, batch: int, cache_len: int,
                      dtype):
-    if kind == "attn":
-        return attn.gqa_cache_spec(cfg, batch, cache_len, dtype)
+    if kind in ("attn", "moe"):
+        return attn.mla_cache_spec(cfg, batch, cache_len, dtype) \
+            if cfg.attn_type == "mla" \
+            else attn.gqa_cache_spec(cfg, batch, cache_len, dtype)
+    if kind == "xattn":
+        return ()
     if kind == "mamba2":
         return ssm.mamba2_state_spec(cfg, batch, dtype)
-    raise NotImplementedError(f"block kind {kind!r} {_LATER}")
+    if kind == "mlstm":
+        return ssm.mlstm_state_spec(cfg, batch, dtype)
+    if kind == "slstm":
+        return ssm.slstm_state_spec(cfg, batch, dtype)
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -115,16 +159,27 @@ def shared_block_params(b: Builder, cfg: ArchConfig):
             "n2": rmsnorm_params(b, d), "mlp": mlp_params(b, d, cfg.d_ff)}
 
 
+def _add_aux(total, a):
+    """total + a, where None stands for the reference's 0 (adding 0 to a
+    float32 sum changes no bit)."""
+    if a is None:
+        return total
+    return a if total is None else total + a
+
+
 def superblock_apply(p, shared_p, cfg: ArchConfig, x, positions, use_flash,
                      use_kernel, caches=None, shared_cache=None,
-                     cache_index=None):
-    """Returns (x, new_caches, new_shared_cache)."""
+                     cache_index=None, img=None):
+    """Returns (x, new_caches, new_shared_cache, aux), aux None where no
+    block of the superblock has one."""
     new_caches = []
+    aux = None
     for i, kind in enumerate(cfg.block_pattern):
         c = None if caches is None else caches[i]
-        x, nc = block_apply(p[f"b{i}"], cfg, kind, x, positions, use_flash,
-                            use_kernel, c, cache_index)
+        x, nc, a = block_apply(p[f"b{i}"], cfg, kind, x, positions,
+                               use_flash, use_kernel, c, cache_index, img)
         new_caches.append(nc)
+        aux = _add_aux(aux, a)
     new_shared = None
     if shared_p is not None:
         h, new_shared = attn.gqa_attention(
@@ -134,7 +189,12 @@ def superblock_apply(p, shared_p, cfg: ArchConfig, x, positions, use_flash,
         x = x + h.to(x.dtype)
         x = x + mlp(shared_p["mlp"],
                     rmsnorm(shared_p["n2"], x, cfg.norm_eps)).to(x.dtype)
-    return x, tuple(new_caches), new_shared
+    return x, tuple(new_caches), new_shared, aux
+
+
+def _on(img, device):
+    """The image embeddings on ``device`` (None stays None)."""
+    return None if img is None else torch.as_tensor(img).to(device)
 
 
 def _map_tensors(fn, tree):
@@ -183,7 +243,6 @@ class Model:
     dicts of tensors, ``blocks`` a list with one dict per superblock."""
 
     def __init__(self, cfg: ArchConfig):
-        _check_ported(cfg)
         self.cfg = cfg
 
     # -- parameters ---------------------------------------------------------
@@ -192,6 +251,10 @@ class Model:
         cfg = self.cfg
         p: Dict[str, Any] = {}
         p["embed"] = embed_params(b, cfg.vocab_size, cfg.d_model)
+        if cfg.n_codebooks > 1:
+            p["codebook_embeds"] = b.param(
+                (cfg.n_codebooks - 1, cfg.vocab_size, cfg.d_model),
+                scale=0.02)
         p["blocks"] = [superblock_params(b, cfg)
                        for _ in range(cfg.resolved_superblocks)]
         if cfg.tail_blocks:
@@ -199,7 +262,10 @@ class Model:
         if cfg.shared_block_every:
             p["shared"] = shared_block_params(b, cfg)
         p["final_norm"] = rmsnorm_params(b, cfg.d_model)
-        if not cfg.tie_embeddings:
+        if cfg.n_codebooks > 1:
+            p["heads"] = b.param((cfg.n_codebooks, cfg.d_model,
+                                  cfg.vocab_size))
+        elif not cfg.tie_embeddings:
             p["head"] = b.param((cfg.d_model, cfg.vocab_size))
         return p
 
@@ -216,7 +282,10 @@ class Model:
     def cache_spec(self, batch: int, cache_len: int, dtype=torch.bfloat16):
         """The caches' shapes and dtypes: ``{"blocks": per pattern position,
         stacked over superblocks, "tail": per tail block, "shared": the
-        shared block's (k, v) stacked over its invocations}``."""
+        shared block's (k, v) stacked over its invocations}``. A block's
+        cache is GQA's (k, v), MLA's latent (c_kv, k_rope), Mamba2's
+        state, mLSTM's (C, n, m), sLSTM's (c, n, m, h), or () for
+        cross-attention."""
         cfg = self.cfg
         n_sb = cfg.resolved_superblocks
         sb = tuple(block_cache_spec(cfg, k, batch, cache_len, dtype)
@@ -233,22 +302,30 @@ class Model:
 
     def init_cache(self, batch: int, cache_len: int, dtype=torch.bfloat16,
                    device=None):
-        """Zero caches of :meth:`cache_spec` on ``device`` (the card unless
-        given). The ported kinds have no state that starts elsewhere than
-        0 (the reference starts only LSTM stabilizers at -1e30)."""
+        """Caches of :meth:`cache_spec` on ``device`` (the card unless
+        given): zeros, except the mLSTM and sLSTM stabilisers m, which
+        start at -1e30 (an empty history), so that the first recurrent
+        step matches the parallel form."""
         dev = dispatch.resolve_device(device)
-        return {key: _zeros(val, dev) for key, val in
-                self.cache_spec(batch, cache_len, dtype).items()}
+        cache = {key: _zeros(val, dev) for key, val in
+                 self.cache_spec(batch, cache_len, dtype).items()}
+        for key, kinds in (("blocks", self.cfg.block_pattern),
+                           ("tail", self.cfg.tail_blocks)):
+            for kind, c in zip(kinds, cache.get(key, ())):
+                if kind in ("mlstm", "slstm"):
+                    c[2].fill_(-1e30)
+        return cache
 
-    def decode_step(self, params, tokens, cache, index: int,
+    def decode_step(self, params, tokens, cache, index: int, img=None,
                     act_dtype=torch.bfloat16, device=None):
-        """One decode step. tokens: (B, 1); ``index``: the absolute
-        position, the caches' write offset. Returns (logits (B, 1, V),
-        cache): the caches of :meth:`init_cache` (or :meth:`prefill`'s,
-        padded by the caller) are updated in place and come back as the
-        same tensors. Attention runs the scores path, Mamba2 its
-        single-step recurrence; no kernel is launched, as in the
-        reference."""
+        """One decode step. tokens: (B, 1), or (B, 1, n_codebooks);
+        ``index``: the absolute position, the caches' write offset; ``img``:
+        a VLM's image embeddings. Returns (logits (B, 1, V), or (B, 1,
+        n_codebooks, V), and cache): the caches of :meth:`init_cache` (or
+        :meth:`prefill`'s, padded by the caller) are updated in place and
+        come back as the same tensors. Attention runs the scores path, the
+        recurrent blocks their single step, MoE drops no token; no kernel
+        is launched, as in the reference."""
         dev = dispatch.resolve_device(device)
         tokens = tokens.to(dev)
         B = tokens.shape[0]
@@ -256,8 +333,9 @@ class Model:
         positions = torch.full((B, 1), int(index), dtype=torch.int64,
                                device=dev)
         x = self._embed_tokens(params, tokens, act_dtype)
-        x, _ = self._stack(params, x, positions, False, True, True,
-                           caches=cache, cache_index=int(index))
+        x, _, _ = self._stack(params, x, positions, False, True, True,
+                              caches=cache, cache_index=int(index),
+                              img=_on(img, dev))
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
         return self._logits(params, x), cache
 
@@ -272,10 +350,20 @@ class Model:
             if t.is_floating_point() else t.to(device), params)
 
     def _embed_tokens(self, params, tokens, act_dtype):
+        """Token embeddings in ``act_dtype``; with codebooks, tokens are
+        (B, S, n_codebooks) and the codebooks' embeddings are summed (the
+        stub EnCodec frontend)."""
+        if self.cfg.n_codebooks > 1:
+            x = embed(params["embed"], tokens[..., 0])
+            for cb in range(self.cfg.n_codebooks - 1):
+                x = x + params["codebook_embeds"][cb][tokens[..., cb + 1]]
+            return x.to(act_dtype)
         return embed(params["embed"], tokens).to(act_dtype)
 
     def _logits(self, params, x):
         x = x.float()
+        if self.cfg.n_codebooks > 1:
+            return torch.einsum("bsd,cdv->bscv", x, params["heads"].float())
         if self.cfg.tie_embeddings:
             return x @ params["embed"]["table"].float().t()
         return x @ params["head"].float()
@@ -283,31 +371,37 @@ class Model:
     # -- core stack ----------------------------------------------------------
 
     def _stack(self, params, x, positions, use_flash, use_kernel,
-               want_cache, caches=None, cache_index=None, remat=False):
-        """The superblocks, then the tail. With ``caches`` (decode) each
-        block reads its slice of the stacked caches and the new states are
-        written back into them; otherwise the fresh caches are stacked
-        (``want_cache``). ``remat`` (training, no caches) keeps only each
-        superblock's input for the backward and runs the superblock again
-        there."""
+               want_cache, caches=None, cache_index=None, remat=False,
+               img=None):
+        """The superblocks, then the tail; returns (x, aux, caches). With
+        ``caches`` (decode) each block reads its slice of the stacked
+        caches and the new states are written back into them; otherwise
+        the fresh caches are stacked (``want_cache``). ``remat`` (training,
+        no caches) keeps only each superblock's input for the backward and
+        runs the superblock again there. aux sums the MoE blocks' aux
+        losses in the reference's order (float32 0 without any)."""
         cfg = self.cfg
         shared_p = params.get("shared")
         sb_caches, sh_caches = [], []
+        aux = None
         for i, blk_p in enumerate(params["blocks"]):
             if remat and caches is None and not want_cache:
                 # the blocks draw no random numbers: no RNG state to stash
-                x = checkpoint(self._superblock_x, blk_p, shared_p, x,
-                               positions, use_flash, use_kernel,
-                               use_reentrant=False, preserve_rng_state=False)
+                x, a = checkpoint(self._superblock_x, blk_p, shared_p, x,
+                                  positions, use_flash, use_kernel, img,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
+                aux = _add_aux(aux, a)
                 continue
             sb_in = sh_in = None
             if caches is not None:
                 sb_in = _map_tensors(lambda t: t[i], caches["blocks"])
                 if shared_p is not None:
                     sh_in = _map_tensors(lambda t: t[i], caches["shared"])
-            x, new_sb, new_sh = superblock_apply(
+            x, new_sb, new_sh, a = superblock_apply(
                 blk_p, shared_p, cfg, x, positions, use_flash, use_kernel,
-                sb_in, sh_in, cache_index)
+                sb_in, sh_in, cache_index, img)
+            aux = _add_aux(aux, a)
             if caches is not None:
                 _write(sb_in, new_sb)
             elif want_cache:
@@ -317,59 +411,66 @@ class Model:
         new_tail = []
         for i, kind in enumerate(cfg.tail_blocks):
             c = None if caches is None else caches["tail"][i]
-            x, nc = block_apply(params["tail"][i], cfg, kind, x, positions,
-                                use_flash, use_kernel, c, cache_index)
+            x, nc, a = block_apply(params["tail"][i], cfg, kind, x,
+                                   positions, use_flash, use_kernel, c,
+                                   cache_index, img)
+            aux = _add_aux(aux, a)
             if caches is not None:
                 _write(c, nc)
             new_tail.append(nc)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
         if caches is not None or not want_cache:
-            return x, caches
+            return x, aux, caches
         cache_out = {"blocks": _stack_trees(sb_caches)}
         if shared_p is not None:
             cache_out["shared"] = _stack_trees(sh_caches)
         if cfg.tail_blocks:
             cache_out["tail"] = tuple(new_tail)
-        return x, cache_out
+        return x, aux, cache_out
 
     def _superblock_x(self, blk_p, shared_p, x, positions, use_flash,
-                      use_kernel):
-        return superblock_apply(blk_p, shared_p, self.cfg, x, positions,
-                                use_flash, use_kernel)[0]
+                      use_kernel, img):
+        out = superblock_apply(blk_p, shared_p, self.cfg, x, positions,
+                               use_flash, use_kernel, img=img)
+        return out[0], out[3]
 
-    def _run(self, params, tokens, act_dtype, use_flash, use_kernel, device,
-             want_cache, remat=False):
+    def _run(self, params, tokens, img, act_dtype, use_flash, use_kernel,
+             device, want_cache, remat=False):
         dev = dispatch.resolve_device(device)
         tokens = tokens.to(dev)
         B, S = tokens.shape[0], tokens.shape[1]
         params = self._cast_params(params, act_dtype, dev)
         positions = torch.arange(S, device=dev)[None].expand(B, S)
         x = self._embed_tokens(params, tokens, act_dtype)
-        x, cache = self._stack(params, x, positions, use_flash, use_kernel,
-                               want_cache, remat=remat)
+        x, aux, cache = self._stack(params, x, positions, use_flash,
+                                    use_kernel, want_cache, remat=remat,
+                                    img=_on(img, dev))
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
-        return params, x, cache
+        return params, x, aux, cache
 
     # -- public entry points --------------------------------------------------
 
-    def forward(self, params, tokens, act_dtype=torch.float32,
+    def forward(self, params, tokens, img=None, act_dtype=torch.float32,
                 use_flash: bool = False, use_kernel: bool = True,
                 device=None, remat: bool = False):
-        """Training forward. Returns (logits, final_hidden, aux_loss); the
-        aux loss is 0 (only MoE blocks add one).
+        """Training forward. tokens: (B, S), or (B, S, n_codebooks); img:
+        a VLM's image embeddings (B, N_img, D). Returns (logits (B, S, V)
+        or (B, S, n_codebooks, V), final_hidden, aux_loss): the aux loss
+        sums the MoE blocks' Switch losses (0 without MoE).
 
         ``use_kernel=False`` runs the plain versions of the kernels instead
         of the kernels (on the card too), to hold one against the other.
         ``remat`` recomputes each superblock in the backward instead of
         keeping its activations (the same values, bit for bit).
         """
-        params, x, _ = self._run(params, tokens, act_dtype, use_flash,
-                                 use_kernel, device, want_cache=False,
-                                 remat=remat)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        params, x, aux, _ = self._run(params, tokens, img, act_dtype,
+                                      use_flash, use_kernel, device,
+                                      want_cache=False, remat=remat)
         return self._logits(params, x), x, aux
 
-    def prefill(self, params, tokens, act_dtype=torch.bfloat16,
+    def prefill(self, params, tokens, img=None, act_dtype=torch.bfloat16,
                 use_flash: bool = False, use_kernel: bool = True,
                 device=None):
         """Prefill forward; returns (last-position logits, cache) with the
@@ -377,8 +478,9 @@ class Model:
         ``{"blocks": per pattern position, stacked over superblocks,
         "shared": (k, v) stacked over invocations, "tail": per tail block}``.
         """
-        params, x, cache = self._run(params, tokens, act_dtype, use_flash,
-                                     use_kernel, device, want_cache=True)
+        params, x, _, cache = self._run(params, tokens, img, act_dtype,
+                                        use_flash, use_kernel, device,
+                                        want_cache=True)
         return self._logits(params, x[:, -1:]), cache
 
     # -- loss -----------------------------------------------------------------
@@ -389,7 +491,8 @@ class Model:
              use_kernel: bool = True, device=None):
         """Causal LM loss (+ optional GW alignment auxiliary loss).
 
-        ``batch`` holds ``tokens`` and ``labels`` (B, S), tensors or numpy
+        ``batch`` holds ``tokens`` and ``labels`` ((B, S), or (B, S,
+        n_codebooks)) and, for a VLM, ``image_embeds``: tensors or numpy
         arrays. Returns (loss, {"ce", "aux"}): loss = ce + 0.01·aux, plus
         0.1·``gw_alignment_loss(hidden, emb)`` with ``gw_align``, which
         aligns the final hidden geometry to the token embeddings' (the
@@ -404,16 +507,18 @@ class Model:
         tokens = torch.as_tensor(batch["tokens"]).to(dev)
         labels = torch.as_tensor(batch["labels"]).to(dev)
         logits, hidden, aux = self.forward(
-            params, tokens, act_dtype=act_dtype, use_flash=use_flash,
+            params, tokens, img=batch.get("image_embeds"),
+            act_dtype=act_dtype, use_flash=use_flash,
             use_kernel=use_kernel, device=dev, remat=remat)
         ce = cross_entropy(logits, labels)
         loss = ce + 0.01 * aux
         if gw_align:
             if gw_generator is None and gw_draws is None:
                 raise ValueError("gw_align needs gw_generator or gw_draws")
-            emb = self._embed_tokens(
-                _map_tensors(lambda t: t.to(dev), {"embed": params["embed"]}),
-                tokens, act_dtype)
+            tables = {k: params[k] for k in ("embed", "codebook_embeds")
+                      if k in params}
+            emb = self._embed_tokens(_map_tensors(lambda t: t.to(dev), tables),
+                                     tokens, act_dtype)
             loss = loss + 0.1 * gw_alignment_loss(gw_generator, hidden, emb,
                                                   draws=gw_draws)
         return loss, {"ce": ce, "aux": aux}

@@ -550,14 +550,17 @@ def _normal(shape, seed, dev, dtype=torch.float32):
 
 @pytest.mark.parametrize("B,S,H,K,hd", [
     (1, 1, 4, 1, 16), (2, 200, 4, 4, 16), (2, 77, 8, 2, 128),
-    (1, 1000, 8, 2, 112), (1, 333, 8, 8, 128), (1, 64, 2, 2, 5)] + [
+    (1, 1000, 8, 2, 112), (1, 333, 8, 8, 128), (1, 64, 2, 2, 5),
+    # llama4-scout's group of 5 (40 / 8, hd 128), musicgen's hd 64 (24 / 24)
+    (1, 333, 10, 2, 128), (2, 77, 5, 1, 128), (1, 1000, 40, 8, 128),
+    (2, 200, 4, 4, 64), (1, 1000, 24, 24, 64), (1, 65, 24, 24, 64)] + [
     (2, S, 2 * G, 2, hd) for hd in (64, 72, 112, 128)
     for S in (1, 63, 65, 200, 1000) for G in (1, 4)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_matches_plain(dev, B, S, H, K, hd, dtype):
     """Ragged S and last tiles (of 64 and of the bf16 kernel's 128 rows),
-    G = 1, 2 and 4, hd from 5 to 128 (72: zero-padded to 80 in the bf16
-    kernel's shared memory)."""
+    G = 1, 2, 4 and 5, hd from 5 to 128 (72: zero-padded to 80 in the
+    bf16 kernel's shared memory)."""
     q = _normal((B * H, S, hd), 0, dev, dtype)
     k = _normal((B * K, S, hd), 1, dev, dtype)
     v = _normal((B * K, S, hd), 2, dev, dtype)
@@ -808,6 +811,44 @@ def test_reduced_model_on_card_matches_cpu(dev, name):
     logits, cache = model.prefill(params, toks, use_flash=True, device=dev)
     assert torch.isfinite(logits).all() and logits.shape == (
         2, 1, cfg.vocab_size)
+
+
+@pytest.mark.parametrize("name", ["llama4_scout_17b_a16e",
+                                  "phi3_5_moe_42b_a6_6b", "minicpm3_4b",
+                                  "llama_3_2_vision_90b", "xlstm_125m",
+                                  "musicgen_medium"])
+def test_new_arch_on_card_matches_cpu(dev, name):
+    """The reduced model's fp32 forward on the card (K5 in every GQA
+    self-attention layer) against the CPU path on the same weights within
+    1e-4 of the largest logit, its aux loss too; the MoE models at
+    capacity factor 100, so that no token's drop depends on rounding."""
+    import dataclasses
+
+    cfg = get_reduced(name)
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=100.0)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    shape = (2, 64, cfg.n_codebooks) if cfg.n_codebooks > 1 else (2, 64)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, shape))
+    img = torch.tensor(rng.standard_normal(
+        (2, cfg.n_image_tokens, cfg.d_model)), dtype=torch.float32) \
+        if cfg.n_image_tokens else None
+    n_attn = 0 if cfg.attn_type == "mla" else cfg.resolved_superblocks * sum(
+        k in ("attn", "moe") for k in cfg.block_pattern)
+    want, _, want_aux = model.forward(params, toks, img=img, use_flash=True,
+                                      device="cpu")
+    fa.reset_launch_counts()
+    got, _, aux = model.forward(params, toks, img=img, use_flash=True,
+                                device=dev)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == n_attn
+    assert (got.cpu() - want).abs().max() <= 1e-4 * want.abs().max()
+    assert abs(float(aux) - float(want_aux)) <= 1e-4 * abs(float(want_aux))
+    logits, _ = model.prefill(params, toks, img=img, use_flash=True,
+                              device=dev)
+    assert torch.isfinite(logits).all()
 
 
 @pytest.mark.parametrize("impl", ["auto", "pallas"])

@@ -11,7 +11,7 @@ from repro_torch.configs import base as configs
 from repro_torch.data import DataConfig, TokenPipeline
 
 
-@pytest.mark.parametrize("arch", configs.PORTED_IDS)
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
 @pytest.mark.parametrize("step", [0, 7])
 def test_batches_equal_the_reference(arch, step):
     for seq, batch, seed in ((32, 8, 1234), (17, 3, 5)):
@@ -26,8 +26,8 @@ def test_batches_equal_the_reference(arch, step):
 
 
 def test_multicodebook_and_vlm_batches_equal_the_reference():
-    """The codebook and image branches, on the port's copies of the
-    reference's reduced configs (their models are not ported yet)."""
+    """The codebook and image branches, on configs rebuilt field by field
+    from the reference's reduced ones."""
     for name in ("musicgen_medium", "llama_3_2_vision_90b"):
         rcfg = ref_configs.get_reduced(name)
         cfg = configs.ArchConfig(**{f: getattr(rcfg, f) for f in

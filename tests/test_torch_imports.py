@@ -36,7 +36,19 @@ NEW_MODULES = ("multiscale/anchors.py", "multiscale/compress.py",
                "data/__init__.py", "data/pipeline.py",
                "checkpoint/__init__.py", "checkpoint/manager.py",
                "launch/steps.py", "launch/train.py",
-               "configs/smollm_135m.py", "configs/phi4_mini_3_8b.py")
+               "configs/smollm_135m.py", "configs/phi4_mini_3_8b.py",
+               "models/moe.py", "configs/minicpm3_4b.py",
+               "configs/llama4_scout_17b_a16e.py",
+               "configs/phi3_5_moe_42b_a6_6b.py",
+               "configs/llama_3_2_vision_90b.py", "configs/xlstm_125m.py",
+               "configs/musicgen_medium.py")
+# the modules the LM stack's last architectures added: each imports alone
+LM_MODULES = ("repro_torch.models.moe", "repro_torch.configs.minicpm3_4b",
+              "repro_torch.configs.llama4_scout_17b_a16e",
+              "repro_torch.configs.phi3_5_moe_42b_a6_6b",
+              "repro_torch.configs.llama_3_2_vision_90b",
+              "repro_torch.configs.xlstm_125m",
+              "repro_torch.configs.musicgen_medium")
 
 
 def _port_files():
@@ -178,3 +190,27 @@ def test_server_and_launcher_raise_without_a_card(monkeypatch):
         GWServer()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_serve.main(["--requests", "1"])
+
+
+@pytest.mark.parametrize("module", LM_MODULES)
+def test_lm_modules_import_alone(module):
+    """Each new module imports first in a fresh process without JAX or the
+    reference; a config module's ``CONFIG`` resolves through
+    ``configs.get_arch``."""
+    import subprocess
+    import sys
+
+    code = (
+        "import importlib, sys\n"
+        f"m = importlib.import_module({module!r})\n"
+        "assert 'jax' not in sys.modules and 'repro' not in sys.modules\n"
+        "if hasattr(m, 'CONFIG'):\n"
+        "    from repro_torch.configs import get_arch, get_reduced\n"
+        "    assert get_arch(m.CONFIG.name) is m.CONFIG\n"
+        "    assert get_reduced(m.CONFIG.name).family == m.CONFIG.family\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PYTHONPATH": str(ROOT / "src")},
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

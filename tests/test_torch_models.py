@@ -12,10 +12,16 @@ Tolerances, as max |port - reference| over max |reference| of each output:
   ``mamba2_block``, ``gqa_attention``): 1e-5. XLA's CPU matmuls, exp and
   rsqrt differ from torch's by up to ~4e-7 relative per op (measured), and
   a module chains a few of them.
-* the whole stack (logits, final hidden, every prefill cache leaf): 1e-4.
-  Reduced zamba2-7b chains 5 Mamba2 layers and 2 shared-block invocations
-  (~40 ops in sequence) on random weights; the measured gap is 1.3e-5 on
-  its logits, 1.1e-6 on reduced llama3-8b's.
+* the whole stack (logits, final hidden, aux loss, every prefill cache
+  leaf): 1e-4. Reduced zamba2-7b chains 5 Mamba2 layers and 2
+  shared-block invocations (~40 ops in sequence) on random weights; the
+  measured gap is 1.3e-5 on its logits, 8e-6 on reduced xlstm-125m's,
+  ~1e-6 on the others'.
+
+Every id of ``configs.ARCH_IDS`` runs here. The reduced vision model's
+cross-attention gate, 0 at init (which would hide the attention), is set
+to 0.5 on both sides before the weights cross; its inputs carry image
+embeddings, musicgen's carry (B, S, n_codebooks) tokens.
 """
 import dataclasses
 import functools
@@ -36,7 +42,12 @@ from repro_torch.models import Model, attention, layers, ssm
 from repro_torch.models.interop import model_params_from_jax
 
 MODULE_REL, STACK_REL = 1e-5, 1e-4
-PORTED = ("zamba2_7b", "llama3_8b", "smollm_135m", "phi4_mini_3_8b")
+PORTED = ("zamba2_7b", "llama3_8b", "smollm_135m", "phi4_mini_3_8b",
+          "llama4_scout_17b_a16e", "phi3_5_moe_42b_a6_6b", "minicpm3_4b",
+          "llama_3_2_vision_90b", "xlstm_125m", "musicgen_medium")
+# the architectures whose first block has GQA self-attention
+GQA = tuple(n for n in PORTED if n not in ("minicpm3_4b", "xlstm_125m"))
+XATTN_GATE = 0.5
 
 
 def _close(got, want, rel):
@@ -52,9 +63,9 @@ def _flatten(tree):
     """Leaves in JAX's order: dicts by sorted key, sequences in order."""
     if isinstance(tree, dict):
         return [leaf for key in sorted(tree) for leaf in _flatten(tree[key])]
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "dtype"):
         return [leaf for item in tree for leaf in _flatten(item)]
-    return [tree]
+    return [tree]                       # a tensor, array or TensorSpec
 
 
 @functools.lru_cache(maxsize=None)
@@ -62,6 +73,10 @@ def _reference(name):
     rcfg = ref_configs.get_reduced(name)
     rmodel = ref_build_model(rcfg)
     rparams = rmodel.init(jax.random.PRNGKey(0))
+    for i, kind in enumerate(rcfg.block_pattern):
+        if kind == "xattn":
+            blk = rparams["blocks"][f"b{i}"]["xattn"]
+            blk["gate"] = jnp.full_like(blk["gate"], XATTN_GATE)
     cfg = configs.get_reduced(name)
     params = model_params_from_jax(cfg, jax.tree.map(np.asarray, rparams),
                                    device="cpu")
@@ -74,7 +89,25 @@ def reference(request):
 
 
 def _tokens(cfg, B=2, S=64, seed=0):
-    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S))
+    """(B, S) token ids, or (B, S, n_codebooks) for a codebook model."""
+    shape = (B, S, cfg.n_codebooks) if cfg.n_codebooks > 1 else (B, S)
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, shape)
+
+
+def _img(cfg, B=2, seed=0):
+    """Image embeddings (B, N_img, D) for a VLM, else None."""
+    if not cfg.n_image_tokens:
+        return None
+    return np.random.default_rng(seed + 100).standard_normal(
+        (B, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+
+
+def _ref_in(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _port_in(a):
+    return None if a is None else torch.tensor(a)
 
 
 # -- configs ---------------------------------------------------------------
@@ -89,29 +122,25 @@ def test_configs_match_reference(name):
         s.name for s in ref_configs.shapes_for(ref_configs.get_arch(name))]
 
 
-def test_unported_architectures_raise():
+def test_every_architecture_resolves_and_unknown_ids_raise():
+    assert sorted(PORTED) == sorted(configs.ARCH_IDS)
     for name in configs.ARCH_IDS:
-        if name not in PORTED:
-            with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-                configs.get_arch(name)
+        Model(configs.get_arch(name))
+    for alias, name in configs.CLI_ALIASES.items():
+        assert configs.get_arch(alias) == configs.get_arch(name)
     with pytest.raises(ValueError, match="unknown"):
         configs.get_reduced("gpt-17")
     assert configs.get_arch("zamba2-7b").name == "zamba2-7b"     # CLI alias
 
 
-def test_unported_model_paths_raise():
-    # decode_step and init_cache are ported for attn and mamba2 (held in
-    # tests/test_torch_decode.py); the caches of other kinds still raise
+def test_unknown_block_kind_raises():
     from repro_torch.models import model_zoo
-    cfg = configs.get_reduced("zamba2_7b")
-    for kind in ("moe", "mlstm", "slstm", "xattn"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-            model_zoo.block_cache_spec(cfg, kind, 2, 16, torch.float32)
-    for bad in (configs.scale_down(cfg, block_pattern=("moe",)),
-                configs.scale_down(cfg, tail_blocks=("mlstm",)),
-                configs.scale_down(cfg, attn_type="mla")):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-            Model(bad)
+    cfg = configs.get_reduced("llama3_8b")
+    with pytest.raises(ValueError, match="conv"):
+        model_zoo.block_cache_spec(cfg, "conv", 2, 16, torch.float32)
+    with pytest.raises(ValueError, match="conv"):
+        Model(configs.scale_down(cfg, block_pattern=("conv",))).init(
+            torch.Generator().manual_seed(0), device="cpu")
 
 
 # -- parameters ------------------------------------------------------------
@@ -137,6 +166,16 @@ def test_init_matches_reference_tree(reference):
         assert torch.all(blk["b0"]["mamba"]["a_log"] == 0)
         w = blk["b0"]["mamba"]["in_proj"]
         assert abs(float(w.std()) * np.sqrt(w.shape[0]) - 1) < 0.05
+    if name == "minicpm3_4b":
+        assert torch.all(blk["b0"]["attn"]["q_norm"] == 1)
+        assert torch.all(blk["b0"]["attn"]["kv_norm"] == 1)
+    if name == "llama_3_2_vision_90b":
+        assert torch.all(blk["b4"]["xattn"]["gate"] == 0)
+    if name == "xlstm_125m":
+        r = blk["b3"]["lstm"]["r"]
+        assert abs(float(r.std()) * np.sqrt(r.shape[-1]) / 0.5 - 1) < 0.1
+    if name == "musicgen_medium":
+        assert abs(float(port["codebook_embeds"].std()) - 0.02) < 0.002
     assert abs(float(port["embed"]["table"].std()) - 0.02) < 0.002
 
 
@@ -208,9 +247,11 @@ def test_mamba2_block_matches_reference():
 
 
 @pytest.mark.parametrize("use_flash", [True, False])
-def test_gqa_attention_matches_reference(reference, use_flash):
-    """zamba2's shared block (G = 1) and llama3's first block (G = 2)."""
-    name, rcfg, _, rparams, cfg, params = reference
+@pytest.mark.parametrize("name", GQA)
+def test_gqa_attention_matches_reference(name, use_flash):
+    """zamba2's shared block (G = 1), the others' first block (G = 1, 2
+    or 3)."""
+    name, rcfg, _, rparams, cfg, params = _reference(name)
     if name == "zamba2_7b":
         p_ref, p = rparams["shared"]["attn"], params["shared"]["attn"]
     else:
@@ -235,24 +276,33 @@ def test_gqa_attention_matches_reference(reference, use_flash):
 @pytest.mark.parametrize("use_flash", [True, False])
 def test_forward_matches_reference(reference, use_flash):
     _, _, rmodel, rparams, cfg, params = reference
-    toks = _tokens(cfg)
+    toks, img = _tokens(cfg), _img(cfg)
     rlogits, rhidden, raux = rmodel.forward(rparams, jnp.asarray(toks),
+                                            img=_ref_in(img),
                                             use_flash=use_flash)
     logits, hidden, aux = Model(cfg).forward(params, torch.tensor(toks),
+                                             img=_port_in(img),
                                              use_flash=use_flash,
                                              device="cpu")
-    assert logits.shape == (2, 64, cfg.vocab_size)
+    assert logits.shape == rlogits.shape
     _close(logits, rlogits, STACK_REL)
     _close(hidden, rhidden, STACK_REL)
-    assert float(aux) == float(raux) == 0.0
+    assert aux.dtype == torch.float32 and aux.dim() == 0
+    if cfg.n_experts:
+        assert float(raux) > 0
+        _close(aux, raux, STACK_REL)
+    else:
+        assert float(aux) == float(raux) == 0.0
 
 
 def test_prefill_matches_reference(reference):
     _, _, rmodel, rparams, cfg, params = reference
-    toks = _tokens(cfg, S=48, seed=1)
+    toks, img = _tokens(cfg, S=48, seed=1), _img(cfg, seed=1)
     rlogits, rcache = rmodel.prefill(rparams, jnp.asarray(toks),
+                                     img=_ref_in(img),
                                      act_dtype=jnp.float32, use_flash=True)
     logits, cache = Model(cfg).prefill(params, torch.tensor(toks),
+                                       img=_port_in(img),
                                        act_dtype=torch.float32,
                                        use_flash=True, device="cpu")
     _close(logits, rlogits, STACK_REL)
@@ -264,22 +314,30 @@ def test_prefill_matches_reference(reference):
 
 
 def test_prefill_in_bfloat16_is_finite(reference):
-    """The reference's prefill default: bfloat16 activations and weights."""
+    """The reference's prefill default: bfloat16 activations and weights;
+    each cache leaf in its spec's dtype (bfloat16 but the LSTM
+    stabilisers and sLSTM states, float32)."""
     _, _, _, _, cfg, params = reference
-    logits, cache = Model(cfg).prefill(params, torch.tensor(_tokens(cfg)),
-                                       use_flash=True, device="cpu")
+    model = Model(cfg)
+    logits, cache = model.prefill(params, torch.tensor(_tokens(cfg)),
+                                  img=_port_in(_img(cfg)), use_flash=True,
+                                  device="cpu")
     assert logits.dtype == torch.float32
     assert torch.isfinite(logits).all()
-    assert all(t.dtype == torch.bfloat16 for t in _flatten(cache))
+    spec = _flatten(model.cache_spec(2, 64, torch.bfloat16))
+    assert [t.dtype for t in _flatten(cache)] == [s.dtype for s in spec]
+    assert [tuple(t.shape) for t in _flatten(cache)] == [
+        tuple(s.shape) for s in spec]
 
 
 def test_entry_points_raise_without_a_card(reference, monkeypatch):
     _, _, _, rparams, cfg, params = reference
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model, toks = Model(cfg), torch.tensor(_tokens(cfg, S=16))
+    img = _port_in(_img(cfg))
     for call in (lambda: model.init(torch.Generator().manual_seed(0)),
-                 lambda: model.forward(params, toks),
-                 lambda: model.prefill(params, toks),
+                 lambda: model.forward(params, toks, img=img),
+                 lambda: model.prefill(params, toks, img=img),
                  lambda: model_params_from_jax(
                      cfg, jax.tree.map(np.asarray, rparams))):
         with pytest.raises(RuntimeError, match="no CUDA device"):

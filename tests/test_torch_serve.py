@@ -950,8 +950,8 @@ def test_launch_serve_runs_on_the_cpu():
         launch_serve.main(["--device", "cpu", "--requests", "4"])
     out = buf.getvalue()
     assert out.count("rid=") == 4 and "n_completed = 4" in out
-    # --mode lm is ported (tests/test_torch_decode.py); an architecture
-    # the port lacks still raises
-    with pytest.raises(NotImplementedError, match="item 17b"):
-        launch_serve.main(["--mode", "lm", "--arch", "xlstm-125m",
+    # --mode lm runs every architecture (tests/test_torch_decode.py) but
+    # the two on which the reference's lm_main fails, which raise
+    with pytest.raises(ValueError, match="reference's lm_main fails"):
+        launch_serve.main(["--mode", "lm", "--arch", "musicgen-medium",
                            "--device", "cpu"])

@@ -411,7 +411,7 @@ def test_train_step_draws_from_the_step_seed(smollm):
     assert steps.gw_seed(5) == (17 << 32) + 5
 
 
-@pytest.mark.parametrize("arch", configs.PORTED_IDS)
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
 def test_one_train_step_every_ported_arch(arch):
     cfg = configs.get_reduced(arch)
     model = Model(cfg)
