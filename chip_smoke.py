@@ -182,6 +182,22 @@ train. drive the training path: (a) the loss gradient of
    loss; K5's forward and plain backward timed at the step's shape; (c)
    under ``torch.use_deterministic_algorithms(True)``, 2 steps and a
    resume of 2 more bit for bit 4 straight (losses and parameters);
+10. (after the train phase) the distributed layer at world size 1 over
+   NCCL on a 1 x 1 ("data", "model") mesh: ``train(mesh=)`` on
+   smollm-135m (B 8 x S 512, use_flash, 5 steps) against
+   ``train(mesh=None)`` from the same seed, in turns (mesh, unsharded,
+   mesh) under deterministic algorithms, losses within rtol 1e-5, K5 60
+   launches a step, the checkpoint restored with ``shardings=`` onto the
+   mesh bit for bit; ``compressed_psum`` within block max / 127 and a
+   one-stage ``pipeline_forward`` against the sequential loop; zamba2-7b
+   at full width with ``split_proj`` (weights split from phase 7's fused
+   ``in_proj``), 1 superblock + tail fp32, against the fused route within
+   SPLIT_PROJ_REL, K6 launching, with the first block's K6 inputs, each
+   route against a float64-summed projection, and a TF32 stand-in that
+   must miss the limit; and the dry run of llama3-8b ``train_4k`` on the
+   (16, 16) fake mesh and of the sharded GW engine at 8192², in child
+   processes on the host's CPU started before the train phase and run
+   beside it (``mesh_path``);
 8. time every kernel at its path's shapes against its plain version,
    its bound and, where one exists, one library call (K5 also at
    llama3-8b's attention shape, and in its row's ``arch_shapes`` at
@@ -204,7 +220,9 @@ The line before the last is the kernel JSON (K1's row also counts its
 launches on phase 4f's ``gw_loss``; its lane launch's row, on phase 4g's
 spar lanes; K5's row its launches in the train run, ``launches_train``,
 and in each bf16 prefill of phase 7c, ``launches_archs``;
-K6's in the zamba2 gradient, ``launches_train_grad``); the last line is
+K6's in the zamba2 gradient, ``launches_train_grad``; K5's in phase
+10's mesh run, ``launches_mesh``, and K6's in its split_proj forward,
+``launches_split_proj``); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
 package ``repro``.
 """
@@ -409,6 +427,32 @@ ARCH_PREFILL_REPS = 3
 ARCH_MOE_CF = 100.0
 # (d) the gradient at published width through K5 against its plain version
 ARCH_GRAD = ("phi3_5_moe_42b_a6_6b", 2, 512)      # arch, B, S; 1 superblock
+
+# phase 10: the mesh path at world size 1 over NCCL, a 1 x 1 ("data",
+# "model") mesh. train(mesh=) on smollm-135m at its published width and
+# depth against train(mesh=None) from the same seed, in turns (mesh,
+# unsharded, mesh) under deterministic algorithms; losses within
+# tests/test_elastic.py's rtol 1e-5
+MESH_ARCH = "smollm_135m"
+MESH_BATCH, MESH_SEQ, MESH_STEPS = 8, 512, 5
+MESH_LOSS_RTOL = 1e-5
+# the dry run's full-size cell (a child process each on the host's CPU,
+# the fake group at 256 ranks) and the sharded GW engine at the
+# reference's s_r = s_c
+MESH_DRYRUN = ("llama3-8b", "train_4k")
+MESH_DRYRUN_TIMEOUT = 400
+MESH_PSUM_N = 1 << 20
+# split_proj against the fused route (zamba2-7b, 1 superblock + tail,
+# fp32, both through K6), in max |difference| over the fused route's
+# largest logit. The routes differ only in how cuBLAS sums one fp32
+# projection; the first block's K6 inputs read 2e-6 apart, and the stack
+# carries that to the logits (phase 7: the plain route 1.6e-4 from a
+# float64 K6). Readings on one H100: the fused route 5.79e-4 and the
+# split route 2.80e-4 from a projection summed in float64; split vs
+# fused 5.93e-4. Two routes each within 6e-4 of the float64 one differ
+# by at most 1.2e-3; a TF32 stand-in (the projection's activations
+# rounded to TF32) reads 0.115 and must miss it
+SPLIT_PROJ_REL = 1.2e-3
 
 
 def moon_points(n: int, seed: int = 0):
@@ -1262,6 +1306,299 @@ def leaf_names(tree, prefix="") -> list:
         return [n for i, v in enumerate(tree) for n in leaf_names(
             v, f"{prefix}/{i}")]
     return [prefix]
+
+
+def split_mamba(tree, cfg):
+    """Every Mamba2 block's fused ``in_proj`` of a parameter tree split
+    into ``split_proj``'s ``in_zx`` (columns [z, x]) and ``in_bcdt``
+    ([B, C, dt]); the other leaves as they are."""
+    if isinstance(tree, dict):
+        if "in_proj" in tree:
+            d_in = cfg.ssm_expand * cfg.d_model
+            out = {k: v for k, v in tree.items() if k != "in_proj"}
+            out["in_zx"] = tree["in_proj"][:, :2 * d_in].contiguous()
+            out["in_bcdt"] = tree["in_proj"][:, 2 * d_in:].contiguous()
+            return out
+        return {k: split_mamba(v, cfg) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [split_mamba(v, cfg) for v in tree]
+    return tree
+
+
+def start_dryruns(tmp: Path) -> dict:
+    """Phase 10's dry runs, started in child processes (the fake group is
+    process-wide) on the host's CPU before the train phase, beside which
+    they run: {name: (process, log path)}. They read no card."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    arch, shape = MESH_DRYRUN
+    children = {}
+    for name, args in (
+            ("cell", ["--arch", arch, "--shape", shape, "--mesh", "single"]),
+            ("gw", ["--gw", "--mesh", "single"])):
+        log = tmp / f"dryrun_{name}.log"
+        with open(log, "w") as f:
+            children[name] = (subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                 "--device", "cpu", "--out", str(tmp / "dryrun")], env=env,
+                stdout=f, stderr=subprocess.STDOUT), log)
+    return children
+
+
+def mesh_phase(torch, dev, short, short_params, tokens, tmp, dryruns,
+               t_dryruns) -> dict:
+    """Phase 10: the distributed layer on the card (see the module
+    docstring). ``short`` is phase 7's zamba2-7b at 1 superblock + tail,
+    ``short_params`` its bfloat16 weights and ``tokens`` phase 7's batch;
+    ``dryruns`` the children of :func:`start_dryruns`, started at
+    ``t_dryruns`` and writing under ``tmp``. Returns K5's launches in the
+    mesh run and K6's in the split_proj forward, for the kernel line."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.distrib import compression, pipeline
+    from repro_torch.distrib import sharding as shd
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1)
+    try:
+        out = _mesh_runs(torch, dev, tmp, make_host_mesh, get_arch, Model,
+                         train_mod, CheckpointManager, shd, adamw, fa)
+        out["collectives"] = _mesh_collectives(
+            torch, dev, compression, pipeline, init_device_mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+
+    # zamba2-7b at full width with split_proj, against the fused route
+    out["split_proj"] = _split_proj_check(torch, short, short_params,
+                                          tokens, ssd)
+    torch.cuda.empty_cache()
+
+    # the dry runs' records
+    t_wait = time.perf_counter()
+    for name, (child, log) in dryruns.items():
+        child.wait(timeout=MESH_DRYRUN_TIMEOUT)
+        if child.returncode != 0:
+            raise AssertionError(f"dry run {name} failed:\n"
+                                 f"{log.read_text()}")
+    now = time.perf_counter()
+    out["dryrun_children_wall_s"] = now - t_dryruns
+    out["dryrun_wait_in_phase_s"] = now - t_wait
+    arch, shape = MESH_DRYRUN
+    records = {}
+    for name, fname in (
+            ("cell", f"{arch}__{shape}__single.json"),
+            ("gw", "spargw-engine__grid8192x8192__single.json")):
+        with open(tmp / "dryrun" / fname) as f:
+            rec = json.load(f)
+        records[name] = {
+            k: rec[k] for k in ("arch", "shape", "mesh_shape", "n_params",
+                                "lower_s", "flops_per_device",
+                                "bytes_per_device")}
+        records[name]["memory"] = rec["memory"]
+        records[name]["collectives"] = {
+            k: v["count"] for k, v in rec["collectives"].items()}
+        records[name]["wire_bytes"] = sum(
+            v["wire_bytes"] for v in rec["collectives"].values())
+    out["dryrun"] = records
+    print(json.dumps({"mesh_path": out}))
+    return {"flash_attention": out["train"]["k5_launches"],
+            "ssd_intra": out["split_proj"]["k6_launches"]}
+
+
+def _split_proj_check(torch, short, short_params, tokens, ssd):
+    """zamba2-7b (phase 7's weights, 1 superblock + tail, fp32) with
+    ``split_proj`` against the fused route. Both run K6; they differ only
+    in how cuBLAS sums the fp32 input projection (one (d, 2·d_in + 2N + H)
+    product, or two by columns). Read alongside: the first block's K6
+    inputs on both routes; each route against one whose projection is
+    summed in float64 and rounded once (the fp32 rounding each route
+    carries); and a stand-in that rounds the projection's activations to
+    TF32, held to fail SPLIT_PROJ_REL."""
+    from repro_torch.models import ssm as ssm_mod
+
+    def tf32(x):                      # rounded to TF32, to nearest
+        return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    def projection(mode):
+        """A weight type whose ``x @ w`` is summed in float64 (``exact``)
+        or takes x rounded to TF32 (``tf32``)"""
+        class Proj(torch.Tensor):
+            @classmethod
+            def __torch_function__(cls, func, types, args=(), kwargs=None):
+                if func in (torch.Tensor.matmul, torch.Tensor.__matmul__):
+                    x, w = (a.as_subclass(torch.Tensor) for a in args)
+                    if mode == "exact":
+                        return (x.double() @ w.double()).float()
+                    return tf32(x) @ w
+                return super().__torch_function__(func, types, args,
+                                                  kwargs or {})
+        return Proj
+
+    def with_proj(tree, cls):
+        if isinstance(tree, dict):
+            return {k: v.as_subclass(cls) if k in (
+                "in_proj", "in_zx", "in_bcdt") else with_proj(v, cls)
+                for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [with_proj(v, cls) for v in tree]
+        return tree
+
+    def run(params):
+        """the logits and the first K6 call's inputs"""
+        seen, k6 = [], ssm_mod.ssd_intra
+
+        def first_inputs(*a, **kw):
+            if not seen:
+                seen.append([t.detach().clone() for t in a])
+            return k6(*a, **kw)
+        ssm_mod.ssd_intra = first_inputs
+        try:
+            logits = short.forward(params, tokens, act_dtype=torch.float32,
+                                   use_flash=True)[0]
+        finally:
+            ssm_mod.ssd_intra = k6
+        return logits, seen[0]
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    split_params = split_mamba(short_params, short.cfg)
+    fused, fused_in = run(short_params)
+    torch.cuda.synchronize()
+    ssd.reset_launch_counts()
+    split, split_in = run(split_params)
+    torch.cuda.synchronize()
+    k6 = ssd.LAUNCHES["ssd_intra"]
+    exact, _ = run(with_proj(short_params, projection("exact")))
+    stand_in, _ = run(with_proj(split_params, projection("tf32")))
+    want_k6 = sum(k == "mamba2" for k in short.cfg.block_pattern
+                  + short.cfg.tail_blocks)
+    out = {"arch": short.cfg.name, "d_model": short.cfg.d_model,
+           "superblocks": 1,
+           "max_rel_err_vs_fused": rel(split, fused),
+           "first_k6_inputs_rel_err": {
+               name: rel(a, b) for name, a, b in zip(
+                   ("xdt", "cs", "Bm", "Cm"), split_in, fused_in)},
+           "vs_float64_projection": {"fused": rel(fused, exact),
+                                     "split": rel(split, exact)},
+           "tf32_stand_in_vs_fused": rel(stand_in, fused),
+           "limit": SPLIT_PROJ_REL, "k6_launches": k6}
+    del fused, split, exact, stand_in, split_params, fused_in, split_in
+    if not out["max_rel_err_vs_fused"] <= SPLIT_PROJ_REL \
+            or not out["tf32_stand_in_vs_fused"] > SPLIT_PROJ_REL \
+            or k6 != want_k6:
+        raise AssertionError(f"split_proj forward: {out} (expected "
+                             f"{want_k6} K6 launches, the split route "
+                             f"within the limit, the TF32 stand-in past "
+                             f"it)")
+    return out
+
+
+def _mesh_runs(torch, dev, tmp, make_host_mesh, get_arch, Model, train_mod,
+               CheckpointManager, shd, adamw, fa):
+    """train(mesh=) on a 1 x 1 mesh against train(mesh=None), in turns;
+    the checkpoint restored onto the mesh."""
+    cfg = get_arch(MESH_ARCH)
+    mesh = make_host_mesh((1, 1))
+    ckpt = str(tmp / "ckpt")
+    kw = dict(use_flash=True, log_every=0)
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, on_mesh in (("mesh_a", True), ("unsharded", False),
+                              ("mesh_b", True)):
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
+            extra = {"mesh": mesh} if on_mesh else {}
+            if name == "mesh_a":
+                extra.update(ckpt_dir=ckpt, ckpt_every=MESH_STEPS)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                p, s_, hist = train_mod.train(cfg, MESH_STEPS, MESH_BATCH,
+                                              MESH_SEQ, **kw, **extra)
+            torch.cuda.synchronize()
+            walls = sorted(h["step_s"] for h in hist)
+            runs[name] = {"wall_s": time.perf_counter() - t0,
+                          "step_median_s": walls[len(walls) // 2],
+                          "step_walls_s": [h["step_s"] for h in hist],
+                          "losses": [h["loss"] for h in hist],
+                          "k5_launches": fa.LAUNCHES["flash_attention"]}
+            if name == "mesh_a":
+                mesh_state = (p, s_)
+            del p, s_
+    finally:
+        torch.use_deterministic_algorithms(False)
+    model = Model(cfg)
+    psh = shd.param_shardings(model.param_axes(), model.abstract_params(),
+                              mesh)
+    state_sh = {"params": psh,
+                "opt": adamw.AdamWState(shd.replicated(mesh), psh, psh)}
+    target = {"params": mesh_state[0], "opt": mesh_state[1]}
+    restored, _ = CheckpointManager(ckpt).restore(MESH_STEPS, target,
+                                                  state_sh)
+    full = (lambda t: t.full_tensor() if shd.is_dtensor(t) else t)
+    def state_leaves(state):          # AdamWState's fields walked too
+        opt = state["opt"]
+        return adamw.tree_leaves([state["params"], opt.step, opt.m, opt.v])
+
+    pairs = list(zip(state_leaves(restored), state_leaves(target)))
+    restore_bitwise = all(shd.is_dtensor(r)
+                          and torch.equal(full(r), full(t))
+                          for r, t in pairs)
+    del restored, target, mesh_state, pairs
+    torch.cuda.empty_cache()
+    base = runs["unsharded"]["losses"]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(
+        runs["mesh_a"]["losses"], base))
+    want_k5 = 2 * cfg.n_layers * MESH_STEPS       # remat: two forwards
+    out = {"train": {"arch": cfg.name, "mesh": [1, 1], "backend": "nccl",
+                     "batch": MESH_BATCH, "seq_len": MESH_SEQ,
+                     "steps": MESH_STEPS, "use_flash": True,
+                     "deterministic": True, "runs": runs,
+                     "max_rel_loss_gap": gap, "limit": MESH_LOSS_RTOL,
+                     "k5_launches": runs["mesh_a"]["k5_launches"],
+                     "restore_bitwise": restore_bitwise}}
+    if not gap <= MESH_LOSS_RTOL or not restore_bitwise \
+            or runs["mesh_a"]["k5_launches"] != want_k5 \
+            or not all(math.isfinite(x) for x in base):
+        raise AssertionError(f"train(mesh=): max rel loss gap {gap} "
+                             f"(limit {MESH_LOSS_RTOL}), K5 "
+                             f"{runs['mesh_a']['k5_launches']} launches "
+                             f"(expected {want_k5}), restore bitwise "
+                             f"{restore_bitwise}")
+    return out
+
+
+def _mesh_collectives(torch, dev, compression, pipeline, init_device_mesh):
+    """compressed_psum within the reference's bound (block max / 127) and
+    pipeline_forward at one stage against the sequential loop."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(MESH_PSUM_N, generator=g, device=dev) * 3.0
+    got = compression.compressed_psum(x)
+    blocks = torch.nn.functional.pad(x, (0, (-x.numel()) % 256)).reshape(
+        -1, 256)
+    bound = (blocks.abs().amax(dim=1, keepdim=True) / 127.0).expand(
+        -1, 256).reshape(-1)[:x.numel()]
+    excess = float(((got - x).abs() - bound).max())
+    W = torch.randn(16, 16, generator=g, device=dev) * 0.3
+    xs = torch.randn(8, 2, 16, generator=g, device=dev)
+    pmesh = init_device_mesh("cuda", (1,), mesh_dim_names=("pipe",))
+    piped = pipeline.pipeline_forward(pmesh, lambda w, v: torch.tanh(v @ w),
+                                      1, 8)(W, xs)
+    pipe_err = float((piped - torch.tanh(xs @ W)).abs().max())
+    out = {"psum_n": MESH_PSUM_N, "psum_max_excess_over_bound": excess,
+           "pipeline_max_abs_err": pipe_err}
+    if not excess <= 0 or not pipe_err <= 1e-5:
+        raise AssertionError(f"collectives: compressed_psum exceeds its "
+                             f"bound by {excess}; pipeline err {pipe_err}")
+    return out
 
 
 def main(parent: Path | None = None) -> int:
@@ -2976,10 +3313,28 @@ def main(parent: Path | None = None) -> int:
     stamps.append(("7c", time.perf_counter()))
     arch_out = arch_phase(torch, dev)
 
-    # -- train. the training path: smollm-135m, K5 and K6 gradients ---------
-    stamps.append(("train", time.perf_counter()))
-    train_launches = train_phase(torch, dev, short, {
-        **params, "blocks": params["blocks"][:1]})
+    # phase 10's dry runs start here, on the host's CPU beside the train
+    # phase (two single-threaded processes of the host's 8 cores)
+    mesh_tmp = Path(tempfile.mkdtemp(prefix="mesh_phase_"))
+    dryruns = start_dryruns(mesh_tmp)
+    t_dryruns = time.perf_counter()
+    try:
+        # -- train. the training path: smollm-135m, K5 and K6 gradients -----
+        stamps.append(("train", time.perf_counter()))
+        train_launches = train_phase(torch, dev, short, {
+            **params, "blocks": params["blocks"][:1]})
+
+        # -- 10. the mesh path: distrib, train(mesh=), split_proj, dry run ---
+        stamps.append(("10", time.perf_counter()))
+        mesh_launches = mesh_phase(torch, dev, short, {
+            **params, "blocks": params["blocks"][:1]}, tokens, mesh_tmp,
+            dryruns, t_dryruns)
+    finally:
+        for child, _ in dryruns.values():
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        shutil.rmtree(mesh_tmp, ignore_errors=True)
 
     # -- 8. kernels at their paths' shapes ----------------------------------
     stamps.append(("8", time.perf_counter()))
@@ -3194,6 +3549,7 @@ def main(parent: Path | None = None) -> int:
                            "flash_attention.py:61",
                "launches": lm_launches["flash_attention"],
                "launches_train": train_launches["flash_attention"],
+               "launches_mesh": mesh_launches["flash_attention"],
                "launches_archs": arch_out["launches"],
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
@@ -3245,6 +3601,7 @@ def main(parent: Path | None = None) -> int:
         "replaces": "src/repro/kernels/ssd/ssd.py:43",
         "launches": lm_launches["ssd_intra"],
         "launches_train_grad": train_launches["ssd_intra"],
+        "launches_split_proj": mesh_launches["ssd_intra"],
         "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None})

@@ -17,12 +17,17 @@ Writes go to ``step_XXXXXXXXXX.tmp`` and are published by an atomic
 background thread while training goes on.
 
 ``restore`` reads the leaves by key into the structure of a target tree
-and puts each on the device and in the dtype of its target leaf: the
-one-card counterpart of the reference's ``device_put`` with shardings.
-Restoring onto another mesh (``shardings``) waits for the distributed
-port (ROADMAP item 17d). bfloat16 leaves have no counterpart: numpy has
-no bfloat16 dtype without the reference's ``ml_dtypes``, and the trainer
-keeps float32 parameters, so both ways raise a ``TypeError``.
+and puts each on the device and in the dtype of its target leaf, or, given
+``shardings`` (a tree of ``distrib.sharding.NamedSharding`` like the
+target), places each as a DTensor on its mesh: the elastic restore onto
+another mesh or rank count, since a checkpoint holds unsharded arrays.
+Saving a tree of DTensors gathers each leaf to its full array on every
+rank (a collective: every rank calls ``save``), rank 0 writes, and the
+ranks meet at a barrier once the write is done, so the files are the
+reference's, byte for byte, whatever the mesh. bfloat16 leaves have no
+counterpart: numpy has no bfloat16 dtype without the reference's
+``ml_dtypes``, and the trainer keeps float32 parameters, so both ways
+raise a ``TypeError``.
 """
 from __future__ import annotations
 
@@ -35,6 +40,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.distrib.sharding import is_dtensor, place, tree_map
 
 
 def _is_namedtuple(x) -> bool:
@@ -74,6 +82,8 @@ def _map_with_paths(fn, tree, prefix=()):
 
 
 def _to_host(key: str, leaf) -> np.ndarray:
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()       # the unsharded array, on every rank
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             raise TypeError(f"checkpoint leaf {key!r} is bfloat16, which "
@@ -91,6 +101,7 @@ class CheckpointManager:
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
+        self._barrier = False         # a write of sharded leaves is pending
 
     # -- save ----------------------------------------------------------------
 
@@ -99,19 +110,29 @@ class CheckpointManager:
         """Atomic checkpoint write; ``blocking=False`` runs in a background
         thread (compute continues while the previous step persists). The
         tree is copied to the host before this returns either way."""
+        self.wait()
+        sharded = any(is_dtensor(x) for _, x in _flatten_with_paths(tree))
         host_tree = _map_with_paths(_to_host, tree)
+        writer = not sharded or dist.get_rank() == 0
+        self._barrier = sharded
         if blocking:
-            self._write(step, host_tree, extra or {})
-        else:
+            if writer:
+                self._write(step, host_tree, extra or {})
             self.wait()
+        elif writer:
             self._thread = threading.Thread(
                 target=self._write, args=(step, host_tree, extra or {}))
             self._thread.start()
 
     def wait(self):
+        """Wait for a background write; after a save of sharded leaves,
+        every rank also waits at a barrier until rank 0 has written."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
 
     def _write(self, step: int, host_tree, extra):
         tmp = self.dir / f"step_{step:010d}.tmp"
@@ -156,12 +177,10 @@ class CheckpointManager:
         """Restore into the structure of ``target_tree``, leaves looked up
         by key (not by flatten order). A tensor target leaf gets a tensor
         on its device in its dtype; any other target leaf gets the numpy
-        array in the target's dtype. Returns (tree, extra)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restoring onto a mesh (shardings) waits for the "
-                "distributed port (ROADMAP item 17d); one card restores "
-                "onto the target leaves' devices")
+        array in the target's dtype. ``shardings``, a tree like the
+        target's of ``distrib.sharding.NamedSharding``, re-shards every
+        leaf onto its mesh as a DTensor (in the target leaf's dtype): the
+        elastic restore onto another topology. Returns (tree, extra)."""
         path = self.dir / f"step_{step:010d}"
         with open(path / "manifest.json") as f:
             manifest = json.load(f)
@@ -185,4 +204,8 @@ class CheckpointManager:
                                                 dtype=target.dtype)
             return arr.astype(np.asarray(target).dtype, copy=False)
 
-        return _map_with_paths(load, target_tree), manifest["extra"]
+        tree = _map_with_paths(load, target_tree)
+        if shardings is not None:
+            tree = tree_map(lambda x, sh: place(torch.as_tensor(x).to(
+                torch.device(sh.mesh.device_type)), sh), tree, shardings)
+        return tree, manifest["extra"]

@@ -1,9 +1,11 @@
 """Distributed Grid-SPAR-GW over ``torch.distributed``.
 
 Counterpart of ``repro.core.sharded_gw``, which runs under ``shard_map``
-on a (data, model) device mesh. Here the mesh is logical: the ranks of the
-default process group are laid out row-major on a (data, model) grid, and
-each axis gets a family of subgroups (:class:`ProcessMesh`). The O(s²)
+on a (data, model) device mesh. Here the mesh is the ranks of the default
+process group laid out row-major on a (data, model) grid, each axis with
+its subgroups: a :class:`ProcessMesh`, or a ``DeviceMesh`` with dims
+``("data", "model")`` (``launch.mesh``), of which the solver takes a
+:class:`ProcessMesh` view. The O(s²)
 phase (cost assembly and Sinkhorn on the s_r x s_c grid block) shards as
 
   CxR (s_r, s_r): rows over 'data'            P('data', None)
@@ -51,12 +53,26 @@ class ProcessMesh:
         self.groups = {"model": rows[self.coords["data"]],
                        "data": cols[self.coords["model"]]}
 
+    @classmethod
+    def of(cls, device_mesh) -> "ProcessMesh":
+        """A view of a ``DeviceMesh`` with dims ("data", "model"): its
+        shape, this rank's coordinates and its groups along each dim."""
+        if tuple(device_mesh.mesh_dim_names) != AXES:
+            raise ValueError(f"the mesh's dims are "
+                             f"{device_mesh.mesh_dim_names}, not {AXES}")
+        view = cls.__new__(cls)
+        view.shape = dict(zip(AXES, device_mesh.shape))
+        view.coords = dict(zip(AXES, device_mesh.get_coordinate()))
+        view.groups = {a: device_mesh.get_group(a) for a in AXES}
+        return view
 
-def make_sharded_grid_gw(mesh: ProcessMesh, s_r: int, s_c: int,
+
+def make_sharded_grid_gw(mesh, s_r: int, s_c: int,
                          loss: str = "l2", epsilon: float = 1e-2,
                          outer_iters: int = 10, inner_iters: int = 30,
                          comm_dtype=None):
-    """Returns fn(CxR, CyC, aR, bC, w) -> (gw_value, T_block).
+    """Returns fn(CxR, CyC, aR, bC, w) -> (gw_value, T_block) on ``mesh``
+(a :class:`ProcessMesh` or a (data, model) ``DeviceMesh``).
 
     Every rank passes the whole inputs (on its device: the card's for
     NCCL, the CPU for gloo) and takes its own block; every rank gets the
@@ -70,6 +86,8 @@ def make_sharded_grid_gw(mesh: ProcessMesh, s_r: int, s_c: int,
     so the port rounds h2(CyC) and h1(CxR) to bfloat16 as well: both
     multiply the same rounded operands.
     """
+    if not isinstance(mesh, ProcessMesh):
+        mesh = ProcessMesh.of(mesh)
     dec = gc.get_decomposition(loss)
     assert dec is not None, "sharded path implements decomposable costs"
     dp, mp = mesh.shape["data"], mesh.shape["model"]

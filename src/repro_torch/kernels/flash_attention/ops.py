@@ -14,12 +14,18 @@ from repro_torch.kernels.flash_attention.flash_attention import (
 def flash_attention(q, k, v, causal: bool = True, device=None):
     """q: (B, S, H, hd); k, v: (B, S, K, hd). Causal GQA attention,
     (B, S, H, hd) in q's dtype, on ``device`` (the card unless given; the
-    CPU runs the kernel's plain version)."""
+    CPU runs the kernel's plain version). DTensor inputs (the mesh path)
+    run on each rank's shards, split over batch and q heads
+    (``dispatch.gqa_on_local_shards``)."""
     if not causal:
         raise NotImplementedError("the kernel implements the causal (LM) "
                                   "case only")
     dev = dispatch.resolve_device(device)
     q, k, v = q.to(dev), k.to(dev), v.to(dev)
+    return dispatch.gqa_on_local_shards(_flash_attention, q, k, v)
+
+
+def _flash_attention(q, k, v):
     B, S, H, hd = q.shape
     K = k.shape[2]
     if H % K:

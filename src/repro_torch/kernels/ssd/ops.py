@@ -16,8 +16,17 @@ from repro_torch.kernels.ssd.ssd import ssd_intra_cuda
 def ssd_intra(xdt, cs, Bm, Cm, device=None):
     """xdt: (G, k, H, P), cs: (G, k, H), Bm/Cm: (G, k, N) -> (G, k, H, P),
     on ``device`` (the card unless given; the CPU runs the kernel's plain
-    version)."""
+    version). DTensor inputs (the mesh path) run on each rank's shards,
+    split over the chunk rows and heads (``dispatch.on_local_shards``)."""
     dev = dispatch.resolve_device(device)
-    xdt, cs, Bm, Cm = (t.to(device=dev, dtype=torch.float32).contiguous()
-                       for t in (xdt, cs, Bm, Cm))
-    return ssd_intra_cuda(xdt, cs, Bm, Cm)
+    args = tuple(t.to(device=dev, dtype=torch.float32)
+                 for t in (xdt, cs, Bm, Cm))
+    return dispatch.on_local_shards(
+        _ssd_intra, args, (("batch", None, "heads", None),
+                           ("batch", None, "heads"), ("batch", None, None),
+                           ("batch", None, None)),
+        ("batch", None, "heads", None))
+
+
+def _ssd_intra(xdt, cs, Bm, Cm):
+    return ssd_intra_cuda(*(t.contiguous() for t in (xdt, cs, Bm, Cm)))

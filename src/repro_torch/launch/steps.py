@@ -16,8 +16,11 @@ pass the reference's draws instead (``gw_draws``).
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
+from repro_torch.distrib.sharding import is_dtensor
 from repro_torch.models.model_zoo import Model
 from repro_torch.optim import adamw
 
@@ -32,7 +35,7 @@ def gw_seed(step: int) -> int:
 def make_train_step(model: Model, base_lr: float = 3e-4, warmup: int = 100,
                     total_steps: int = 10000, act_dtype=torch.bfloat16,
                     remat: bool = True, use_flash: bool = False,
-                    gw_align: bool = False):
+                    gw_align: bool = False, use_kernel: bool = True):
     """``train_step(params, opt_state, batch, gw_draws=None)`` ->
     (new_params, new_opt_state, metrics) with metrics ``loss``, ``ce``,
     ``aux``, ``gnorm`` (before clipping) and ``lr``, 0-d tensors. The
@@ -42,6 +45,10 @@ def make_train_step(model: Model, base_lr: float = 3e-4, warmup: int = 100,
     lr_fn = adamw.cosine_schedule(base_lr, warmup, total_steps)
 
     def train_step(params, opt_state, batch, gw_draws=None):
+        with mesh_context(params):
+            return _step(params, opt_state, batch, gw_draws)
+
+    def _step(params, opt_state, batch, gw_draws):
         leaves = adamw.tree_leaves(params)
         dev = leaves[0].device
         gen = None
@@ -53,6 +60,7 @@ def make_train_step(model: Model, base_lr: float = 3e-4, warmup: int = 100,
         loss, parts = model.loss(live, batch, act_dtype=act_dtype,
                                  use_flash=use_flash, remat=remat,
                                  gw_align=gw_align, gw_generator=gen,
+                                 use_kernel=use_kernel,
                                  gw_draws=gw_draws, device=dev)
         flat = adamw.tree_leaves(live)
         grads = iter(torch.autograd.grad(loss, flat))
@@ -68,20 +76,33 @@ def make_train_step(model: Model, base_lr: float = 3e-4, warmup: int = 100,
 
 
 def make_prefill_step(model: Model, act_dtype=torch.bfloat16,
-                      use_flash: bool = False):
+                      use_flash: bool = False, use_kernel: bool = True):
     def prefill_step(params, batch):
-        return model.prefill(params, torch.as_tensor(batch["tokens"]),
-                             img=batch.get("image_embeds"),
-                             act_dtype=act_dtype, use_flash=use_flash,
-                             device=adamw.tree_leaves(params)[0].device)
+        with mesh_context(params):
+            return model.prefill(params, torch.as_tensor(batch["tokens"]),
+                                 img=batch.get("image_embeds"),
+                                 act_dtype=act_dtype, use_flash=use_flash,
+                                 use_kernel=use_kernel,
+                                 device=adamw.tree_leaves(params)[0].device)
     return prefill_step
 
 
 def make_decode_step(model: Model, act_dtype=torch.bfloat16):
     def decode_step(params, batch):
-        return model.decode_step(params, torch.as_tensor(batch["tokens"]),
-                                 batch["cache"], int(batch["index"]),
-                                 img=batch.get("image_embeds"),
-                                 act_dtype=act_dtype,
-                                 device=adamw.tree_leaves(params)[0].device)
+        with mesh_context(params):
+            return model.decode_step(
+                params, torch.as_tensor(batch["tokens"]), batch["cache"],
+                int(batch["index"]), img=batch.get("image_embeds"),
+                act_dtype=act_dtype,
+                device=adamw.tree_leaves(params)[0].device)
     return decode_step
+
+
+def mesh_context(params):
+    """Where the parameters are DTensors (the mesh path), plain tensors
+    met in the step (the batch, masks, positions) count as replicated
+    (``implicit_replication``); elsewhere no context."""
+    if not is_dtensor(adamw.tree_leaves(params)[0]):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()

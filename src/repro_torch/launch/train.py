@@ -7,12 +7,16 @@
   · async checkpointing every N steps, atomic publish, keep-k GC;
   · straggler watchdog: per-step wall-time EMA, slow steps logged.
 
-The reference's elastic restore onto another mesh and its sharded step
-(``mesh``) wait for the distributed port (ROADMAP item 17d), and
-``mesh`` raises. Its XLA latency-hiding scheduler flags (TPU compute and
-communication overlap, set in the environment before JAX starts) have
-no counterpart: one card has no collectives to overlap, and the eager
-step has no compiler to pass them to.
+``mesh`` (a ``DeviceMesh`` over the default process group, e.g.
+``launch.mesh.make_host_mesh``) runs the reference's sharded step:
+activation sharding on, the parameters and the AdamW moments placed as
+DTensors by ``distrib.sharding.param_shardings`` (FSDP over 'data', TP and
+EP over 'model'), the batch replicated, the step eager with DTensor
+propagation, and resume through ``restore(shardings=)``. Every rank runs
+``train`` with the same arguments. The reference's XLA latency-hiding
+scheduler flags (TPU compute and communication overlap, set in the
+environment before JAX starts) have no counterpart: the eager step has
+no compiler to pass them to.
 
 On the card a resumed run matches a straight one bit for bit only under
 ``torch.use_deterministic_algorithms(True)`` (with
@@ -32,16 +36,19 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import base as cb
 from repro_torch.data import TokenPipeline
+from repro_torch.distrib import sharding as shd
 from repro_torch.kernels import dispatch
 from repro_torch.launch.steps import make_train_step
-from repro_torch.models.model_zoo import Model
+from repro_torch.models.model_zoo import Model, set_activation_sharding
 from repro_torch.optim import adamw
 
 INIT_SEED = 0      # parameters drawn from torch.Generator(device).manual_seed
@@ -66,6 +73,13 @@ class StragglerWatchdog:
         return slow
 
 
+def _scalar(v) -> float:
+    """A metric as a float (a DTensor's full value)."""
+    if shd.is_dtensor(v):
+        v = v.full_tensor()
+    return float(v)
+
+
 def _state_target(params, opt_state):
     """A tree of the train state's shapes, dtypes and devices to restore
     into (uninitialized tensors)."""
@@ -87,10 +101,6 @@ def train(cfg, steps: int, global_batch: int, seq_len: int,
     read of its metrics, which waits for the device). Runs on the card unless ``device`` says otherwise. Parameters
     are drawn from ``torch.Generator(device).manual_seed(INIT_SEED)`` in
     float32 (the reference draws them from ``PRNGKey(0)``)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "train(mesh=...) waits for the distributed port (ROADMAP item "
-            "17d); the port trains on one card")
     dev = dispatch.resolve_device(device)
     model = Model(cfg)
     pipe = TokenPipeline(cfg, seq_len, global_batch)
@@ -102,16 +112,42 @@ def train(cfg, steps: int, global_batch: int, seq_len: int,
                               total_steps=total)
     mgr = CheckpointManager(ckpt_dir, keep=keep) if ckpt_dir else None
 
+    state_sh = None
+    if mesh is not None:
+        if not dist.is_initialized():
+            raise ValueError("train(mesh=) needs the default process group "
+                             "that the mesh is built over")
+        if mesh.size() != dist.get_world_size():
+            raise ValueError(f"the mesh has {mesh.size()} ranks, the "
+                             f"default process group "
+                             f"{dist.get_world_size()}")
+        if mesh.device_type != dev.type:
+            raise ValueError(f"the mesh is on {mesh.device_type}, the "
+                             f"step on {dev}")
+        dp = shd.data_axes(mesh)
+        sizes = shd.axis_sizes(mesh)
+        set_activation_sharding(
+            True, dp=dp, dp_size=math.prod(sizes[a] for a in dp),
+            model_size=sizes["model"])
+        param_sh = shd.param_shardings(model.param_axes(),
+                                       model.abstract_params(), mesh)
+        state_sh = {"params": param_sh,
+                    "opt": adamw.AdamWState(shd.replicated(mesh), param_sh,
+                                            param_sh)}
+
     # ---- init or resume ----------------------------------------------------
     params = model.init(torch.Generator(device=dev).manual_seed(INIT_SEED),
                         device=dev)
     opt_state = adamw.init(params)
+    if state_sh is not None:
+        params = shd.shard(params, state_sh["params"])
+        opt_state = shd.shard(adamw.init(params), state_sh["opt"])
     start = 0
     if mgr is not None and mgr.latest_step() is not None:
         start = mgr.latest_step()
         target = _state_target(params, opt_state)
         del params, opt_state
-        restored, extra = mgr.restore(start, target)
+        restored, extra = mgr.restore(start, target, state_sh)
         params, opt_state = restored["params"], restored["opt"]
         pipe.load_state_dict(extra["pipeline"])
         print(f"[resume] from step {start}")
@@ -123,7 +159,7 @@ def train(cfg, steps: int, global_batch: int, seq_len: int,
                  for k, v in pipe.global_batch_at(step).items()}
         t0 = time.time()
         params, opt_state, metrics = step_fn(params, opt_state, batch)
-        metrics = {k: float(v) for k, v in metrics.items()}
+        metrics = {k: _scalar(v) for k, v in metrics.items()}
         dt = time.time() - t0
         if watchdog.observe(step, dt):
             print(f"[straggler] step {step}: {dt:.2f}s vs ema "
@@ -141,6 +177,8 @@ def train(cfg, steps: int, global_batch: int, seq_len: int,
         mgr.wait()
         mgr.save(steps, {"params": params, "opt": opt_state},
                  extra={"pipeline": pipe.state_dict()})
+    if mesh is not None:
+        set_activation_sharding(False)
     return params, opt_state, history
 
 

@@ -5,7 +5,8 @@ Projections are stored flat ``(d_model, n·head_dim)`` as in the reference.
 Train and prefill take ``cache=None`` and return the fresh cache ``(k, v)``.
 With ``use_flash`` the causal attention runs through the flash attention
 kernel (K5), where the reference runs its blockwise XLA scan
-(``blockwise_gqa``, whose TPU analogue K5 is); otherwise through the masked
+(``blockwise_gqa``, whose TPU analogue K5 is; ``use_kernel=False`` runs
+it here, in float32, as K5's plain version); otherwise through the masked
 scores path ``_gqa_scores_combine``. Decode takes a cache ``(k, v)`` of
 shape (B, T, K, hd) and a write offset, and always runs the scores path
 (K5 is for S > 1, as the reference's ``use_flash`` is).
@@ -25,12 +26,21 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.dispatch import gqa_on_local_shards
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.layers import apply_rope
 from repro_torch.models.module import Builder
+from repro_torch.models.sharding_ctx import merge_last, split_last
 
 NEG_INF = -1e30
+
+# Blockwise-attention KV chunk size (the reference's ``_FLASH_CHUNK``): the
+# default of ``blockwise_gqa`` and ``blockwise_mla``; a hill-climbing lever.
+_FLASH_CHUNK = {"size": 512}
+
+
+def set_flash_chunk(size: int):
+    _FLASH_CHUNK["size"] = size
 
 
 class TensorSpec(NamedTuple):
@@ -43,11 +53,57 @@ class TensorSpec(NamedTuple):
 def gqa_params(b: Builder, cfg: ArchConfig):
     d, hd = cfg.d_model, cfg.resolved_head_dim
     return {
-        "wq": b.param((d, cfg.n_heads * hd)),
-        "wk": b.param((d, cfg.n_kv_heads * hd)),
-        "wv": b.param((d, cfg.n_kv_heads * hd)),
-        "wo": b.param((cfg.n_heads * hd, d)),
+        "wq": b.param((d, cfg.n_heads * hd), ("embed", "heads")),
+        "wk": b.param((d, cfg.n_kv_heads * hd), ("embed", "kv")),
+        "wv": b.param((d, cfg.n_kv_heads * hd), ("embed", "kv")),
+        "wo": b.param((cfg.n_heads * hd, d), ("heads", "embed")),
     }
+
+
+def blockwise_gqa(q, k, v, chunk: int = 0):
+    """Causal online-softmax attention over KV chunks of ``chunk`` keys
+    (``set_flash_chunk``'s size unless given; halved until it divides S):
+    the (S, S) scores never exist at full length. The reference's
+    function, and K5's plain version on the ``use_flash`` path.
+
+    q: (B,S,K,G,hd), k/v: (B,S,K,hd) -> (B,S,K,G,hd) in v's dtype.
+    """
+    B, S, K, G, hd = q.shape
+    chunk = min(chunk or _FLASH_CHUNK["size"], S)
+    while S % chunk != 0:
+        chunk //= 2
+    scale = 1.0 / math.sqrt(hd)
+    q_pos = torch.arange(S, device=q.device)
+    m = torch.full((B, K, G, S), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, K, G, S), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, S, K, G, hd), dtype=v.dtype, device=q.device)
+    for t0 in range(0, S, chunk):
+        s = torch.einsum("bskgd,btkd->bkgst", q,
+                         k[:, t0:t0 + chunk]).float() * scale
+        mask = (t0 + torch.arange(chunk, device=q.device))[None, :] \
+            <= q_pos[:, None]                                # (S, chunk)
+        s = s.masked_fill(~mask, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        pr = torch.exp(s - m_new[..., None])
+        l = l * corr + pr.sum(dim=-1)
+        pv = torch.einsum("bkgst,btkd->bskgd", pr.to(v.dtype),
+                          v[:, t0:t0 + chunk])
+        acc = acc * corr.permute(0, 3, 1, 2)[..., None].to(acc.dtype) + pv
+        m = m_new
+    return acc / l.permute(0, 3, 1, 2).clamp(min=1e-30)[..., None].to(
+        acc.dtype)
+
+
+def _blockwise_plain(q, k, v):
+    """K5's plain version: q (B,S,H,hd), k/v (B,S,K,hd) -> (B,S,H,hd) in
+    q's dtype, through :func:`blockwise_gqa` in float32."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    out = blockwise_gqa(q.float().reshape(B, S, K, H // K, hd), k.float(),
+                        v.float())
+    return out.reshape(B, S, H, hd).to(q.dtype)
 
 
 def _gqa_scores_combine(q, k, v, mask):
@@ -68,8 +124,9 @@ def gqa_attention(p, cfg: ArchConfig, x, positions, cache=None,
 
     Train and prefill: ``cache=None``; the fresh ``(k, v)`` comes back.
     ``use_kernel=False`` sends the ``use_flash`` branch to K5's plain
-    version (float32 inside, output in q's dtype) instead of the kernel;
-    it exists to hold the kernel against its plain version on the card.
+    version, :func:`blockwise_gqa` in float32 (output in q's dtype),
+    instead of the kernel; it holds the kernel against its plain version
+    on the card, and the dry run takes it on fake tensors.
 
     Decode: ``cache=(k, v)`` of shape (B, T, K, hd) and ``cache_index``
     the absolute position of x's first token. The new k and v are written
@@ -82,9 +139,9 @@ def gqa_attention(p, cfg: ArchConfig, x, positions, cache=None,
     K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     H = cfg.n_heads
     G = H // K
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, K, hd)
-    v = (x @ p["wv"]).reshape(B, S, K, hd)
+    q = split_last(x @ p["wq"], H, hd)
+    k = split_last(x @ p["wk"], K, hd)
+    v = split_last(x @ p["wv"], K, hd)
     q = apply_rope(q, positions, cfg.rope_theta)       # head h = kv·G + g
     k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -96,20 +153,21 @@ def gqa_attention(p, cfg: ArchConfig, x, positions, cache=None,
         valid = torch.arange(T, device=x.device)[None, :] \
             <= positions[:, -1:]                       # absolute positions
         dt = torch.promote_types(q.dtype, ck.dtype)    # as jnp promotes
-        out = _gqa_scores_combine(q.reshape(B, S, K, G, hd).to(dt),
+        out = _gqa_scores_combine(split_last(merge_last(q), K, G, hd).to(dt),
                                   ck.to(dt), cv.to(dt),
                                   valid[:, None, :].expand(B, S, T))
-        return out.reshape(B, S, H * hd) @ p["wo"], (ck, cv)
+        return merge_last(out, out.ndim - 2) @ p["wo"], (ck, cv)
 
     if use_flash and S > 1:
         if use_kernel:
             out = flash_attention(q, k, v, device=x.device)
         else:
-            out = attention_ref(q.float(), k.float(), v.float()).to(q.dtype)
+            out = gqa_on_local_shards(_blockwise_plain, q, k, v)
     else:
         mask = torch.ones((S, S), dtype=torch.bool, device=x.device).tril()
-        out = _gqa_scores_combine(q.reshape(B, S, K, G, hd), k, v, mask)
-    out = out.reshape(B, S, H * hd)
+        out = _gqa_scores_combine(split_last(merge_last(q), K, G, hd), k, v,
+                                  mask)
+    out = merge_last(out, out.ndim - 2)
     return out @ p["wo"], (k, v)
 
 
@@ -128,13 +186,13 @@ def mla_params(b: Builder, cfg: ArchConfig):
     qr, kr = cfg.mla_q_rank, cfg.mla_kv_rank
     nd, rd, vd = cfg.mla_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim
     return {
-        "wq_a": b.param((d, qr)),
-        "q_norm": b.param((qr,), init="ones"),
-        "wq_b": b.param((qr, H * (nd + rd))),
-        "wkv_a": b.param((d, kr + rd)),
-        "kv_norm": b.param((kr,), init="ones"),
-        "wkv_b": b.param((kr, H * (nd + vd))),
-        "wo": b.param((H * vd, d)),
+        "wq_a": b.param((d, qr), ("embed", "lora")),
+        "q_norm": b.param((qr,), ("lora",), init="ones"),
+        "wq_b": b.param((qr, H * (nd + rd)), ("lora", "heads")),
+        "wkv_a": b.param((d, kr + rd), ("embed", "lora")),
+        "kv_norm": b.param((kr,), ("lora",), init="ones"),
+        "wkv_b": b.param((kr, H * (nd + vd)), ("lora", "heads")),
+        "wo": b.param((H * vd, d), ("heads", "embed")),
     }
 
 
@@ -151,7 +209,7 @@ def _mla_qkv(p, cfg: ArchConfig, x, positions):
     nd, rd = cfg.mla_nope_dim, cfg.mla_rope_dim
     kr = cfg.mla_kv_rank
     qa = _latent_norm(x @ p["wq_a"], p["q_norm"])
-    q = (qa @ p["wq_b"]).reshape(B, S, H, nd + rd)
+    q = split_last(qa @ p["wq_b"], H, nd + rd)
     q_nope, q_rope = q[..., :nd], q[..., nd:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     ckv = x @ p["wkv_a"]
@@ -171,7 +229,7 @@ def _mla_attend(p, cfg: ArchConfig, q_nope, q_rope, c_kv, k_rope, mask):
     B, T, _ = c_kv.shape
     H = cfg.n_heads
     nd, vd = cfg.mla_nope_dim, cfg.mla_v_dim
-    kv = (c_kv @ p["wkv_b"]).reshape(B, T, H, nd + vd)
+    kv = split_last(c_kv @ p["wkv_b"], H, nd + vd)
     k_nope, v = kv[..., :nd], kv[..., nd:]
     s1 = torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
     s2 = torch.einsum("bshd,btd->bhst", q_rope, k_rope)
@@ -181,20 +239,18 @@ def _mla_attend(p, cfg: ArchConfig, q_nope, q_rope, c_kv, k_rope, mask):
     scores = scores.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhst,bthd->bshd", probs, v)
-    return out.reshape(B, -1, H * vd) @ p["wo"]
+    return merge_last(out) @ p["wo"]
 
 
 def blockwise_mla(p, cfg: ArchConfig, q_nope, q_rope, c_kv, k_rope,
-                  chunk: int = 512):
+                  chunk: int = 0):
     """Causal online-softmax MLA over KV chunks of ``chunk`` positions
-    (halved until it divides S; the reference's global
-    ``set_flash_chunk``, whose only caller is its dry run, becomes this
-    argument): keys and values are expanded from the latent one chunk at
-    a time, so neither the (S, S) scores nor the expanded KV exist at full
-    length."""
+    (``set_flash_chunk``'s size unless given; halved until it divides S):
+    keys and values are expanded from the latent one chunk at a time, so
+    neither the (S, S) scores nor the expanded KV exist at full length."""
     B, S, H, nd = q_nope.shape
     vd = cfg.mla_v_dim
-    chunk = min(chunk, S)
+    chunk = min(chunk or _FLASH_CHUNK["size"], S)
     while S % chunk != 0:
         chunk //= 2
     scale = _mla_scale(cfg)
@@ -204,8 +260,8 @@ def blockwise_mla(p, cfg: ArchConfig, q_nope, q_rope, c_kv, k_rope,
     l = torch.zeros((B, H, S), dtype=torch.float32, device=c_kv.device)
     acc = torch.zeros((B, S, H, vd), dtype=c_kv.dtype, device=c_kv.device)
     for t0 in range(0, S, chunk):
-        kv = (c_kv[:, t0:t0 + chunk] @ p["wkv_b"]).reshape(
-            B, chunk, H, nd + vd)
+        kv = split_last(c_kv[:, t0:t0 + chunk] @ p["wkv_b"], H,
+                        nd + vd)
         k_nope, v = kv[..., :nd], kv[..., nd:]
         s = (torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
              + torch.einsum("bshd,btd->bhst", q_rope,
@@ -221,7 +277,7 @@ def blockwise_mla(p, cfg: ArchConfig, q_nope, q_rope, c_kv, k_rope,
         acc = acc * corr.transpose(1, 2)[..., None].to(acc.dtype) + pv
         m = m_new
     out = acc / l.transpose(1, 2).clamp(min=1e-30)[..., None].to(acc.dtype)
-    return out.reshape(B, S, H * vd) @ p["wo"]
+    return merge_last(out) @ p["wo"]
 
 
 def mla_attention(p, cfg: ArchConfig, x, positions, cache=None,
@@ -264,11 +320,11 @@ def mla_cache_spec(cfg: ArchConfig, batch: int, seq: int, dtype):
 def xattn_params(b: Builder, cfg: ArchConfig):
     d, hd = cfg.d_model, cfg.resolved_head_dim
     return {
-        "wq": b.param((d, cfg.n_heads * hd)),
-        "wk": b.param((d, cfg.n_kv_heads * hd)),
-        "wv": b.param((d, cfg.n_kv_heads * hd)),
-        "wo": b.param((cfg.n_heads * hd, d)),
-        "gate": b.param((1,), init="zeros"),
+        "wq": b.param((d, cfg.n_heads * hd), ("embed", "heads")),
+        "wk": b.param((d, cfg.n_kv_heads * hd), ("embed", "kv")),
+        "wv": b.param((d, cfg.n_kv_heads * hd), ("embed", "kv")),
+        "wo": b.param((cfg.n_heads * hd, d), ("heads", "embed")),
+        "gate": b.param((1,), (None,), init="zeros"),
     }
 
 
@@ -285,9 +341,9 @@ def cross_attention(p, cfg: ArchConfig, x, kv_src):
     G = H // K
     kv_src = kv_src.to(x.device)
     dt = torch.promote_types(x.dtype, kv_src.dtype)
-    q = (x @ p["wq"]).reshape(B, S, K, G, hd).to(dt)
-    k = (kv_src.to(dt) @ p["wk"].to(dt)).reshape(B, -1, K, hd)
-    v = (kv_src.to(dt) @ p["wv"].to(dt)).reshape(B, -1, K, hd)
+    q = split_last(x @ p["wq"], K, G, hd).to(dt)
+    k = split_last(kv_src.to(dt) @ p["wk"].to(dt), K, hd)
+    v = split_last(kv_src.to(dt) @ p["wv"].to(dt), K, hd)
     mask = torch.ones((S, k.shape[1]), dtype=torch.bool, device=x.device)
-    out = _gqa_scores_combine(q, k, v, mask).reshape(B, S, H * hd)
+    out = merge_last(_gqa_scores_combine(q, k, v, mask), 3)
     return torch.tanh(p["gate"]) * (out @ p["wo"].to(dt))

@@ -5,7 +5,8 @@ on a leading axis (``blocks``), the tail as a list, and dicts elsewhere;
 the port keeps ``blocks`` as a list with one dict per superblock. Every
 other leaf crosses as it is: the MoE experts stacked (E, d, f), the MLA
 latents' projections and norms, cross-attention's ``gate``, sLSTM's
-recurrent ``r`` (4, H, hd, hd), ``codebook_embeds`` and ``heads``. With
+recurrent ``r`` (4, H, hd, hd), ``codebook_embeds`` and ``heads``, and a
+Mamba2 block's ``in_zx`` / ``in_bcdt`` under ``split_proj``. With
 the same parameters on both sides the two packages compute the same
 function, which the parity tests hold them to.
 """

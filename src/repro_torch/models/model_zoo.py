@@ -10,9 +10,12 @@ MLP), ``xattn`` (cross-attention to the image embeddings + MLP),
 config's ``attn_type`` says. Multi-codebook models (musicgen) sum one
 embedding a codebook at the input and have one head a codebook.
 The reference scans the superblocks with ``lax.scan``; here they run as a
-Python loop, as the reference's ``unroll_layers`` path does, and the
-caches come back stacked over superblocks as the scan returns them.
-``sharding_ctx`` constraints are identities on one card and are left out.
+Python loop, as the reference's ``unroll_layers`` path does (so
+``Model(cfg, unroll_layers=)`` has no counterpart), and the caches come
+back stacked over superblocks as the scan returns them. The
+``sharding_ctx`` constraints sit at the reference's sites (each
+superblock's input, the logits); they are identities unless parameters
+placed on a mesh make the activations DTensors (``launch.train(mesh=)``).
 
 Entry points: ``init``, ``forward`` (returns logits, final hidden and the
 MoE blocks' aux loss), ``loss`` (the causal LM loss with 0.01·aux,
@@ -33,6 +36,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distrib.sharding import is_dtensor
 from repro_torch.kernels import dispatch
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
@@ -47,6 +51,12 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.module import Builder
 from repro_torch.models.moe import moe_mlp, moe_params
+from repro_torch.models.sharding_ctx import (  # noqa: F401 — re-exported
+    constrain_acts as _constrain_acts,
+    constrain_logits as _constrain_logits,
+    reduce_grad as _reduce_grad,
+    set_activation_sharding,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -98,32 +108,49 @@ def block_apply(p, cfg: ArchConfig, kind: str, x, positions, use_flash,
     (S == 1), as the reference's do."""
     eps = cfg.norm_eps
     if kind in ("attn", "moe"):
-        h, new_cache = _attn_apply(p["attn"], cfg, rmsnorm(p["n1"], x, eps),
+        h, new_cache = _attn_apply(p["attn"], cfg, _norm(p["n1"], x, eps),
                                    positions, cache, cache_index, use_flash,
                                    use_kernel)
-        x = x + h.to(x.dtype)
+        x = _residual(x, h)
         if kind == "attn":
-            x = x + mlp(p["mlp"], rmsnorm(p["n2"], x, eps)).to(x.dtype)
+            x = _residual(x, mlp(p["mlp"], _norm(p["n2"], x, eps)))
             return x, new_cache, None
-        h, aux = moe_mlp(p["moe"], cfg, rmsnorm(p["n2"], x, eps),
+        h, aux = moe_mlp(p["moe"], cfg, _norm(p["n2"], x, eps),
                          no_drop=(x.shape[1] == 1))
-        return x + h.to(x.dtype), new_cache, aux
+        return _residual(x, h), new_cache, aux
     if kind == "xattn":
-        x = x + attn.cross_attention(p["xattn"], cfg,
-                                     rmsnorm(p["n1"], x, eps), img).to(x.dtype)
-        x = x + mlp(p["mlp"], rmsnorm(p["n2"], x, eps)).to(x.dtype)
+        x = _residual(x, attn.cross_attention(p["xattn"], cfg,
+                                              _norm(p["n1"], x, eps), img))
+        x = _residual(x, mlp(p["mlp"], _norm(p["n2"], x, eps)))
         return x, (), None
     if kind == "mamba2":
         h, new_state = ssm.mamba2_block(p["mamba"], cfg,
-                                        rmsnorm(p["n1"], x, eps),
+                                        _norm(p["n1"], x, eps),
                                         state=cache, use_kernel=use_kernel)
-        return x + h.to(x.dtype), new_state, None
+        return _residual(x, h), new_state, None
     if kind in ("mlstm", "slstm"):
         fn = ssm.mlstm_block if kind == "mlstm" else ssm.slstm_block
-        h, new_state = fn(p["lstm"], cfg, rmsnorm(p["n1"], x, eps),
+        h, new_state = fn(p["lstm"], cfg, _norm(p["n1"], x, eps),
                           state=cache)
-        return x + h.to(x.dtype), new_state, None
+        return _residual(x, h), new_state, None
     raise ValueError(kind)
+
+
+def _norm(p, x, eps):
+    """A sublayer's input norm; on the mesh path the gradient that its
+    projections send back is reduced here (``reduce_grad``)."""
+    return rmsnorm(p, _reduce_grad(x), eps)
+
+
+def _residual(x, h):
+    """``x + h`` in x's dtype. On the mesh path h, the output of a
+    projection whose contraction is split over 'model' (attention's
+    ``wo``, the MLP's ``w_down``), is a ``Partial`` sum: it is reduced to
+    the activations' layout first (``constrain_acts``), so the residual
+    stream never carries a ``Partial`` into the next projection, where
+    DTensor would replicate the weight and run the product whole on
+    every rank of 'model'."""
+    return x + _constrain_acts(h).to(x.dtype)
 
 
 def block_cache_spec(cfg: ArchConfig, kind: str, batch: int, cache_len: int,
@@ -183,12 +210,12 @@ def superblock_apply(p, shared_p, cfg: ArchConfig, x, positions, use_flash,
     new_shared = None
     if shared_p is not None:
         h, new_shared = attn.gqa_attention(
-            shared_p["attn"], cfg, rmsnorm(shared_p["n1"], x, cfg.norm_eps),
+            shared_p["attn"], cfg, _norm(shared_p["n1"], x, cfg.norm_eps),
             positions, cache=shared_cache, cache_index=cache_index,
             use_flash=use_flash, use_kernel=use_kernel)
-        x = x + h.to(x.dtype)
-        x = x + mlp(shared_p["mlp"],
-                    rmsnorm(shared_p["n2"], x, cfg.norm_eps)).to(x.dtype)
+        x = _residual(x, h)
+        x = _residual(x, mlp(shared_p["mlp"],
+                             _norm(shared_p["n2"], x, cfg.norm_eps)))
     return x, tuple(new_caches), new_shared, aux
 
 
@@ -243,6 +270,8 @@ class Model:
     dicts of tensors, ``blocks`` a list with one dict per superblock."""
 
     def __init__(self, cfg: ArchConfig):
+        # the reference's ``unroll_layers`` has no counterpart: the
+        # superblocks already run as a Python loop
         self.cfg = cfg
 
     # -- parameters ---------------------------------------------------------
@@ -254,7 +283,7 @@ class Model:
         if cfg.n_codebooks > 1:
             p["codebook_embeds"] = b.param(
                 (cfg.n_codebooks - 1, cfg.vocab_size, cfg.d_model),
-                scale=0.02)
+                (None, "vocab", "embed"), scale=0.02)
         p["blocks"] = [superblock_params(b, cfg)
                        for _ in range(cfg.resolved_superblocks)]
         if cfg.tail_blocks:
@@ -264,9 +293,10 @@ class Model:
         p["final_norm"] = rmsnorm_params(b, cfg.d_model)
         if cfg.n_codebooks > 1:
             p["heads"] = b.param((cfg.n_codebooks, cfg.d_model,
-                                  cfg.vocab_size))
+                                  cfg.vocab_size), (None, "embed", "vocab"))
         elif not cfg.tie_embeddings:
-            p["head"] = b.param((cfg.d_model, cfg.vocab_size))
+            p["head"] = b.param((cfg.d_model, cfg.vocab_size),
+                                ("embed", "vocab"))
         return p
 
     def init(self, generator: torch.Generator, device=None,
@@ -276,6 +306,15 @@ class Model:
         stored in ``dtype``."""
         return self._build(Builder(generator, dispatch.resolve_device(device),
                                    dtype))
+
+    def abstract_params(self, dtype=torch.float32):
+        """The parameters' shapes and dtypes as tensors on the ``meta``
+        device: nothing is allocated."""
+        return self._build(Builder(mode="shape", dtype=dtype))
+
+    def param_axes(self):
+        """The parameters' logical sharding axes, a tree of tuples."""
+        return self._build(Builder(mode="axes"))
 
     # -- caches -------------------------------------------------------------
 
@@ -336,7 +375,7 @@ class Model:
         x, _, _ = self._stack(params, x, positions, False, True, True,
                               caches=cache, cache_index=int(index),
                               img=_on(img, dev))
-        x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
+        x = _norm(params["final_norm"], x, self.cfg.norm_eps)
         return self._logits(params, x), cache
 
     # -- embedding / head ----------------------------------------------------
@@ -356,17 +395,20 @@ class Model:
         if self.cfg.n_codebooks > 1:
             x = embed(params["embed"], tokens[..., 0])
             for cb in range(self.cfg.n_codebooks - 1):
-                x = x + params["codebook_embeds"][cb][tokens[..., cb + 1]]
+                x = x + embed({"table": params["codebook_embeds"][cb]},
+                              tokens[..., cb + 1])
             return x.to(act_dtype)
         return embed(params["embed"], tokens).to(act_dtype)
 
     def _logits(self, params, x):
         x = x.float()
         if self.cfg.n_codebooks > 1:
-            return torch.einsum("bsd,cdv->bscv", x, params["heads"].float())
-        if self.cfg.tie_embeddings:
-            return x @ params["embed"]["table"].float().t()
-        return x @ params["head"].float()
+            out = torch.einsum("bsd,cdv->bscv", x, params["heads"].float())
+        elif self.cfg.tie_embeddings:
+            out = x @ params["embed"]["table"].float().t()
+        else:
+            out = x @ params["head"].float()
+        return _constrain_logits(out)
 
     # -- core stack ----------------------------------------------------------
 
@@ -385,6 +427,7 @@ class Model:
         sb_caches, sh_caches = [], []
         aux = None
         for i, blk_p in enumerate(params["blocks"]):
+            x = _constrain_acts(x)
             if remat and caches is None and not want_cache:
                 # the blocks draw no random numbers: no RNG state to stash
                 x, a = checkpoint(self._superblock_x, blk_p, shared_p, x,
@@ -447,7 +490,7 @@ class Model:
         x, aux, cache = self._stack(params, x, positions, use_flash,
                                     use_kernel, want_cache, remat=remat,
                                     img=_on(img, dev))
-        x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
+        x = _norm(params["final_norm"], x, self.cfg.norm_eps)
         return params, x, aux, cache
 
     # -- public entry points --------------------------------------------------
@@ -519,6 +562,9 @@ class Model:
                       if k in params}
             emb = self._embed_tokens(_map_tensors(lambda t: t.to(dev), tables),
                                      tokens, act_dtype)
+            if is_dtensor(hidden):
+                # the mesh path: the alignment loss on replicated states
+                hidden, emb = hidden.full_tensor(), emb.full_tensor()
             loss = loss + 0.1 * gw_alignment_loss(gw_generator, hidden, emb,
                                                   draws=gw_draws)
         return loss, {"ce": ce, "aux": aux}

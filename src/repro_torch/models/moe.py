@@ -20,9 +20,10 @@ assignments, as the reference's does.
 Both return the Switch load-balancing loss; ``no_drop=True`` sizes the
 buffers so that nothing drops (decode). Routing ties go to the lower
 expert index, as ``lax.top_k`` breaks them (``torch.topk`` does not
-promise it). ``sharding_ctx.constrain`` is the identity on one card and
-is left out; the reference's ``bf16_dispatch`` lever waits for its only
-caller (``launch/hillclimb.py``).
+promise it). ``set_moe_options(bf16_dispatch=True)`` rounds the combine
+weights to bfloat16, the reference's hill-climbing lever. On a mesh
+(DTensor activations) gshard runs :func:`_gshard_mesh`, with the
+reference's ``sharding_ctx.constrain`` sites.
 """
 from __future__ import annotations
 
@@ -30,19 +31,31 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distrib.sharding import is_dtensor
+from repro_torch.models import sharding_ctx
 from repro_torch.models.layers import mlp, mlp_params
 from repro_torch.models.module import Builder
+from repro_torch.models.sharding_ctx import constrain
 
 _GROUP_SIZE = 4096
+
+# Hillclimb lever: the combine weights in bfloat16 instead of float32 (the
+# reference's combine tensor, its largest MoE transient); the gate weights
+# stay float32 until they are rounded.
+_MOE_OPTS = {"bf16_dispatch": False}
+
+
+def set_moe_options(**kw):
+    _MOE_OPTS.update(kw)
 
 
 def moe_params(b: Builder, cfg: ArchConfig):
     d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     p = {
-        "router": b.param((d, E)),
-        "w_gate": b.param((E, d, f)),
-        "w_up": b.param((E, d, f)),
-        "w_down": b.param((E, f, d)),
+        "router": b.param((d, E), ("embed", None)),
+        "w_gate": b.param((E, d, f), ("expert", "embed", "mlp")),
+        "w_up": b.param((E, d, f), ("expert", "embed", "mlp")),
+        "w_down": b.param((E, f, d), ("expert", "mlp", "embed")),
     }
     if cfg.shared_expert:
         p["shared"] = mlp_params(b, d, f)
@@ -75,6 +88,57 @@ def _experts(p, buf):
     return torch.einsum("...ecf,efd->...ecd", h, p["w_down"])
 
 
+def _slots(sel, E: int, cap: int):
+    """Slot of each (token, choice) and whether it is kept: the
+    assignments to its expert before it, every earlier choice's included
+    (dropped ones too), as ``counts_used``. sel: (G,Sg,k) expert ids."""
+    G, _, k = sel.shape
+    counts_used = torch.zeros((G, E), dtype=torch.int64, device=sel.device)
+    pos, keep = [], []
+    for j in range(k):
+        oh = F.one_hot(sel[..., j], E)                       # (G,Sg,E)
+        before = torch.cumsum(oh, dim=1) - oh + counts_used[:, None, :]
+        pos_j = torch.gather(before, 2, sel[..., j:j + 1])[..., 0]
+        pos.append(pos_j)
+        keep.append(pos_j < cap)
+        counts_used = counts_used + oh.sum(dim=1)
+    return torch.stack(pos, -1), torch.stack(keep, -1)     # (G,Sg,k)
+
+
+def _kept_counts(sel, keep, E: int):
+    """Kept assignments per expert, (E,) float32."""
+    kept = torch.zeros((E,), dtype=torch.float32, device=sel.device)
+    return kept.index_add_(0, sel.reshape(-1), keep.reshape(-1).float())
+
+
+def _dispatch(xg, sel, pos, keep, E: int, cap: int):
+    """The (G, E, cap, D) expert buffer. Each token goes to its slot by
+    index, a dropped one to the spare slot ``cap``, cut off after (no
+    mask, so no host sync); the empty slots stay 0, as the reference's
+    einsum leaves them."""
+    G, Sg, D = xg.shape
+    k = sel.shape[-1]
+    gi = torch.arange(G, device=xg.device)[:, None, None].expand(G, Sg, k)
+    slot = torch.where(keep, pos, cap)
+    buf = xg.new_zeros((G, E, cap + 1, D)).index_put(
+        (gi, sel, slot), xg[:, :, None, :].expand(G, Sg, k, D))
+    return buf[:, :, :cap]
+
+
+def _combine(y, sel, pos, keep, weights, dtype):
+    """Each token sums its kept slots' outputs at its gate weights, in the
+    activation dtype ``dtype`` accumulated in float32 as the einsum does;
+    with ``bf16_dispatch`` the weights are rounded to bfloat16 first (the
+    reference's combine tensor). y: (G, E, cap, D) -> (G, Sg, D)."""
+    G, Sg, k = sel.shape
+    cap = y.shape[2]
+    comb = torch.bfloat16 if _MOE_OPTS["bf16_dispatch"] else torch.float32
+    w = (weights * keep).to(comb).to(dtype).float()
+    gi = torch.arange(G, device=y.device)[:, None, None].expand(G, Sg, k)
+    got = y[gi, sel, pos.clamp(max=cap - 1)]                 # (G,Sg,k,D)
+    return (got.float() * w[..., None]).sum(dim=2).to(dtype)
+
+
 def moe_mlp_gshard(p, cfg: ArchConfig, x, no_drop: bool = False):
     """GShard dispatch with per-group capacity. x: (B,S,D) -> (out, aux)."""
     B, S, D = x.shape
@@ -85,45 +149,70 @@ def moe_mlp_gshard(p, cfg: ArchConfig, x, no_drop: bool = False):
         Sg //= 2
     G = T // Sg
     cap = Sg * k if no_drop else max(1, int(Sg * k / E * cfg.capacity_factor))
+    if is_dtensor(x):
+        return _gshard_mesh(p, cfg, x, G, Sg, cap)
     xg = x.reshape(G, Sg, D)
 
     probs, gate_vals, sel = _route(p, xg, k)                 # (G,Sg,k)
     weights = torch.softmax(gate_vals, dim=-1)
-
-    # slot of each (token, choice): the assignments to its expert before it,
-    # every earlier choice's included (dropped ones too), as counts_used
-    counts_used = torch.zeros((G, E), dtype=torch.int64, device=x.device)
-    pos, keep = [], []
-    for j in range(k):
-        oh = F.one_hot(sel[..., j], E)                       # (G,Sg,E)
-        before = torch.cumsum(oh, dim=1) - oh + counts_used[:, None, :]
-        pos_j = torch.gather(before, 2, sel[..., j:j + 1])[..., 0]
-        pos.append(pos_j)
-        keep.append(pos_j < cap)
-        counts_used = counts_used + oh.sum(dim=1)
-    pos, keep = torch.stack(pos, -1), torch.stack(keep, -1)  # (G,Sg,k)
+    pos, keep = _slots(sel, E, cap)
 
     # Switch aux loss: the kept assignments' share per expert
-    kept = torch.zeros((E,), dtype=torch.float32, device=x.device)
-    kept = kept.index_add_(0, sel.reshape(-1), keep.reshape(-1).float())
+    frac = _kept_counts(sel, keep, E) / (G * Sg)
+    aux = E * torch.sum(frac / k * probs.mean(dim=(0, 1)))
+
+    y = _experts(p, _dispatch(xg, sel, pos, keep, E, cap))  # (G,E,cap,D)
+    out = _combine(y, sel, pos, keep, weights, x.dtype).reshape(B, S, D)
+    if cfg.shared_expert:
+        out = out + mlp(p["shared"], x)
+    return out, aux
+
+
+def _gshard_mesh(p, cfg: ArchConfig, x, G: int, Sg: int, cap: int):
+    """:func:`moe_mlp_gshard` on a mesh (x a DTensor). The groups split
+    over the data axes (where they divide) and the experts over 'model'
+    at the reference's ``constrain`` sites; the routing, the slot
+    assignment, the scatter into the expert buffer and the gather back
+    run on each rank's own groups (index ops have no DTensor rule), and
+    the experts' matmuls run as DTensor ops on the buffer split over
+    experts, the reference's expert-parallel all-to-all."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    B, S, D = x.shape
+    E, k = cfg.n_experts, cfg.experts_per_token
+    mesh = x.device_mesh
+    dp = set(sharding_ctx._ACT_SHARD["dp"])
+    rows = [Shard(0) if name in dp and B % mesh.size(i) == 0
+            and G % mesh.size(i) == 0 else Replicate()
+            for i, name in enumerate(mesh.mesh_dim_names)]
+    x_rows = x.redistribute(mesh, rows)
+    xg_l = x_rows.to_local().reshape(-1, Sg, D)              # own groups
+    xg = constrain(DTensor.from_local(xg_l, mesh, rows, run_check=False),
+                   "dp", None, None)
+
+    probs, gate_vals, sel = _route(p, xg, k)                 # (G,Sg,k)
+    weights = torch.softmax(gate_vals, dim=-1)
+    sel_l = sel.redistribute(mesh, rows).to_local()
+    pos_l, keep_l = _slots(sel_l, E, cap)
+
+    partial = [Partial() if isinstance(r, Shard) else Replicate()
+               for r in rows]
+    kept = DTensor.from_local(_kept_counts(sel_l, keep_l, E), mesh, partial,
+                              run_check=False)
     frac = kept / (G * Sg)
     aux = E * torch.sum(frac / k * probs.mean(dim=(0, 1)))
 
-    # token -> slot by index, a dropped one to the spare slot ``cap``, cut
-    # off after (no mask, so no host sync); the empty slots stay 0, as the
-    # einsum leaves them
-    gi = torch.arange(G, device=x.device)[:, None, None].expand(G, Sg, k)
-    slot = torch.where(keep, pos, cap)
-    buf = x.new_zeros((G, E, cap + 1, D)).index_put(
-        (gi, sel, slot), xg[:, :, None, :].expand(G, Sg, k, D))
-    y = _experts(p, buf[:, :, :cap])                         # (G,E,cap,D)
-
-    # each token sums its kept slots' outputs at its gate weights (in the
-    # activation dtype, accumulated in float32 as the einsum does)
-    w = (weights * keep).to(x.dtype).float()
-    got = y[gi, sel, pos.clamp(max=cap - 1)]                 # (G,Sg,k,D)
-    out = (got.float() * w[..., None]).sum(dim=2).to(x.dtype)
-    out = out.reshape(B, S, D)
+    xg_l = xg.redistribute(mesh, rows).to_local()
+    buf = DTensor.from_local(_dispatch(xg_l, sel_l, pos_l, keep_l, E, cap),
+                             mesh, rows, run_check=False)
+    buf = constrain(buf, "dp", "model", None, None)          # EP all-to-all
+    y = constrain(_experts(p, buf), "dp", "model", None, None)
+    out_l = _combine(y.redistribute(mesh, rows).to_local(), sel_l, pos_l,
+                     keep_l, weights.redistribute(mesh, rows).to_local(),
+                     x.dtype)
+    # the reference's constrain(out, "dp", None, None): out is in rows
+    out = DTensor.from_local(out_l.reshape(-1, S, D), mesh, rows,
+                             run_check=False)
     if cfg.shared_expert:
         out = out + mlp(p["shared"], x)
     return out, aux

@@ -5,9 +5,10 @@ Mamba2 has a single B/C group and no short convolution, as in the
 reference. The intra-chunk block ``y_intra`` runs through the SSD kernel
 (K6) on (batch·chunks, k, H, P) views; the per-chunk input states, the
 sequential scan over chunks and ``y_inter`` stay torch ops. Decode (S = 1
-with a state) runs the single-step recurrence. ``split_proj`` (a
-tensor-parallel lever; the port runs on one card) is not ported yet
-(ROADMAP item 17d).
+with a state) runs the single-step recurrence.
+``set_mamba_options(split_proj=True)`` declares the input projection as a
+tensor-parallel ``in_zx`` and a replicated ``in_bcdt`` (the reference's
+lever).
 
 mLSTM runs its stabilised parallel form for train and prefill (and hands
 its final state to decode) and its one-step recurrence in decode. sLSTM
@@ -32,6 +33,23 @@ from repro_torch.kernels.ssd.ops import ssd_intra
 from repro_torch.kernels.ssd.ref import ssd_intra_ref
 from repro_torch.models.attention import TensorSpec
 from repro_torch.models.module import Builder
+from repro_torch.models.sharding_ctx import (
+    local_elementwise,
+    merge_last,
+    split_last,
+)
+
+
+# Hill-climbing lever: the fused in_proj's output width (2·d_in + 2N + H)
+# is generally not divisible by the TP degree (zamba2: 14563 % 16 != 0), so
+# the divisibility guard replicates the whole parameter and its gradient
+# all-reduces dominate. split_proj=True factors it into a TP-shardable
+# (d, 2·d_in) ``in_zx`` and a small replicated (d, 2N + H) ``in_bcdt``.
+_MAMBA_OPTS = {"split_proj": False}
+
+
+def set_mamba_options(**kw):
+    _MAMBA_OPTS.update(kw)
 
 
 def mamba2_params(b: Builder, cfg: ArchConfig):
@@ -39,14 +57,19 @@ def mamba2_params(b: Builder, cfg: ArchConfig):
     d_in = cfg.ssm_expand * d
     H = cfg.ssm_heads
     N = cfg.ssm_state
-    return {
-        "a_log": b.param((H,), init="zeros"),
-        "skip_d": b.param((H,), init="ones"),
-        "dt_bias": b.param((H,), init="zeros"),
-        "norm": b.param((d_in,), init="ones"),
-        "out_proj": b.param((d_in, d)),
-        "in_proj": b.param((d, 2 * d_in + 2 * N + H)),
+    p = {
+        "a_log": b.param((H,), (None,), init="zeros"),
+        "skip_d": b.param((H,), (None,), init="ones"),
+        "dt_bias": b.param((H,), (None,), init="zeros"),
+        "norm": b.param((d_in,), ("mlp",), init="ones"),
+        "out_proj": b.param((d_in, d), ("mlp", "embed")),
     }
+    if _MAMBA_OPTS["split_proj"]:
+        p["in_zx"] = b.param((d, 2 * d_in), ("embed", "mlp"))
+        p["in_bcdt"] = b.param((d, 2 * N + H), ("embed", None))
+    else:
+        p["in_proj"] = b.param((d, 2 * d_in + 2 * N + H), ("embed", "mlp"))
+    return p
 
 
 def _ssd_chunked(xh, dt, a_log, Bm, Cm, chunk: int, use_kernel: bool = True):
@@ -106,10 +129,15 @@ def mamba2_block(p, cfg: ArchConfig, x, state=None, use_kernel: bool = True):
     d_in = cfg.ssm_expand * D
     H, N = cfg.ssm_heads, cfg.ssm_state
     P = d_in // H
-    proj = x @ p["in_proj"]
-    z, xi, Bm, Cm, dt = torch.split(proj, [d_in, d_in, N, N, H], dim=-1)
+    if "in_zx" in p:
+        proj_zx = x @ p["in_zx"]
+        z, xi = proj_zx[..., :d_in], proj_zx[..., d_in:]
+        Bm, Cm, dt = torch.split(x @ p["in_bcdt"], [N, N, H], dim=-1)
+    else:
+        proj = x @ p["in_proj"]
+        z, xi, Bm, Cm, dt = torch.split(proj, [d_in, d_in, N, N, H], dim=-1)
     dt = F.softplus(dt.float() + p["dt_bias"])               # (B,S,H)
-    xh = xi.reshape(B, S, H, P)
+    xh = split_last(xi, H, P)
 
     if state is None:
         y, new_state = _ssd_chunked(xh, dt, p["a_log"], Bm, Cm,
@@ -126,7 +154,7 @@ def mamba2_block(p, cfg: ArchConfig, x, state=None, use_kernel: bool = True):
         y = torch.einsum("bn,bhnp->bhp", Cm[:, 0].to(ct),
                          new_state.to(ct))[:, None]
     y = y + xh * p["skip_d"][None, None, :, None]
-    y = y.reshape(B, S, d_in) * F.silu(z)
+    y = merge_last(y) * F.silu(z)
     y32 = y.float()
     y = (y32 * torch.rsqrt((y32 * y32).mean(dim=-1, keepdim=True) + 1e-6)
          ).to(x.dtype) * p["norm"]
@@ -155,13 +183,13 @@ def mlstm_params(b: Builder, cfg: ArchConfig):
     d = cfg.d_model
     pd = int(cfg.lstm_proj_factor * d)
     return {
-        "w_up": b.param((d, 2 * pd)),
-        "wq": b.param((pd, pd)),
-        "wk": b.param((pd, pd)),
-        "wv": b.param((pd, pd)),
-        "w_if": b.param((pd, 2 * cfg.n_heads)),
-        "norm": b.param((pd,), init="ones"),
-        "w_down": b.param((pd, d)),
+        "w_up": b.param((d, 2 * pd), ("embed", "mlp")),
+        "wq": b.param((pd, pd), ("mlp", "heads")),
+        "wk": b.param((pd, pd), ("mlp", "heads")),
+        "wv": b.param((pd, pd), ("mlp", "heads")),
+        "w_if": b.param((pd, 2 * cfg.n_heads), ("mlp", None)),
+        "norm": b.param((pd,), ("mlp",), init="ones"),
+        "w_down": b.param((pd, d), ("mlp", "embed")),
     }
 
 
@@ -176,12 +204,12 @@ def mlstm_block(p, cfg: ArchConfig, x, state=None):
     P = pd // H
     up = x @ p["w_up"]
     xi, z = up[..., :pd], up[..., pd:]
-    q = (xi @ p["wq"]).reshape(B, S, H, P)
-    k = (xi @ p["wk"]).reshape(B, S, H, P) / math.sqrt(P)
-    v = (xi @ p["wv"]).reshape(B, S, H, P)
+    q = split_last(xi @ p["wq"], H, P)
+    k = split_last(xi @ p["wk"], H, P) / math.sqrt(P)
+    v = split_last(xi @ p["wv"], H, P)
     gates = (xi @ p["w_if"]).float()                          # (B,S,2H)
     i_raw, f_raw = gates[..., :H], gates[..., H:]
-    log_f = F.logsigmoid(f_raw)                               # (B,S,H)
+    log_f = local_elementwise(F.logsigmoid, f_raw)            # (B,S,H)
 
     if state is None:
         Fc = torch.cumsum(log_f, dim=1)                       # (B,S,H)
@@ -219,7 +247,7 @@ def mlstm_block(p, cfg: ArchConfig, x, state=None):
         h = (num / den)[:, None]                              # (B,1,H,P)
         new_state = (C, n, m_new)
 
-    h = _out_norm(p, h.reshape(B, S, pd), x.dtype)
+    h = _out_norm(p, merge_last(h), x.dtype)
     return (h * F.silu(z)) @ p["w_down"], new_state
 
 
@@ -242,11 +270,12 @@ def slstm_params(b: Builder, cfg: ArchConfig):
     H = cfg.n_heads
     hd = pd // H
     return {
-        "w_up": b.param((d, 2 * pd)),
-        "w_in": b.param((pd, 4 * pd)),                        # z,i,f,o
-        "r": b.param((4, H, hd, hd), scale=0.5 / hd ** 0.5),  # per head
-        "norm": b.param((pd,), init="ones"),
-        "w_down": b.param((pd, d)),
+        "w_up": b.param((d, 2 * pd), ("embed", "mlp")),
+        "w_in": b.param((pd, 4 * pd), ("mlp", None)),       # z,i,f,o
+        "r": b.param((4, H, hd, hd), (None, "heads", None, None),
+                     scale=0.5 / hd ** 0.5),                  # per head
+        "norm": b.param((pd,), ("mlp",), init="ones"),
+        "w_down": b.param((pd, d), ("mlp", "embed")),
     }
 
 
@@ -263,7 +292,7 @@ def _slstm_step(p, cfg: ArchConfig, pre, carry):
     z_r, i_r, f_r, o_r = (pre.reshape(B, 4, pd) + rec).unbind(dim=1)
     z = torch.tanh(z_r)
     o = torch.sigmoid(o_r)
-    lf = F.logsigmoid(f_r.float())
+    lf = local_elementwise(F.logsigmoid, f_r.float())
     m_new = torch.maximum(lf + m, i_r.float())
     i_s = torch.exp(i_r - m_new)
     f_s = torch.exp(lf + m - m_new)

@@ -138,4 +138,8 @@ def test_train_loop_runs_every_new_arch(name, capsys):
     assert len(hist) == 3 and int(state.step) == 3
     assert all(np.isfinite(h["loss"]) for h in hist)
     assert all((h["aux"] > 0) == bool(cfg.n_experts) for h in hist)
-    assert capsys.readouterr().out.count("step ") == 3
+    # one log line a step (a "[straggler] step" line may come too: the
+    # watchdog flags a step slower than twice the average, as a loaded
+    # machine makes one)
+    log = capsys.readouterr().out.splitlines()
+    assert sum(line.startswith("step ") for line in log) == 3

@@ -41,9 +41,19 @@ NEW_MODULES = ("multiscale/anchors.py", "multiscale/compress.py",
                "configs/llama4_scout_17b_a16e.py",
                "configs/phi3_5_moe_42b_a6_6b.py",
                "configs/llama_3_2_vision_90b.py", "configs/xlstm_125m.py",
-               "configs/musicgen_medium.py")
+               "configs/musicgen_medium.py",
+               "distrib/__init__.py", "distrib/sharding.py",
+               "distrib/compression.py", "distrib/pipeline.py",
+               "models/sharding_ctx.py", "launch/mesh.py",
+               "launch/specs.py", "launch/dryrun.py", "launch/hillclimb.py")
 # the modules the LM stack's last architectures added: each imports alone
 LM_MODULES = ("repro_torch.models.moe", "repro_torch.configs.minicpm3_4b",
+              "repro_torch.distrib.sharding",
+              "repro_torch.distrib.compression",
+              "repro_torch.distrib.pipeline",
+              "repro_torch.models.sharding_ctx", "repro_torch.launch.mesh",
+              "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+              "repro_torch.launch.hillclimb",
               "repro_torch.configs.llama4_scout_17b_a16e",
               "repro_torch.configs.phi3_5_moe_42b_a6_6b",
               "repro_torch.configs.llama_3_2_vision_90b",
@@ -214,3 +224,24 @@ def test_lm_modules_import_alone(module):
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_mesh_training_and_the_dry_run_raise_without_a_card(monkeypatch):
+    """``train(mesh=)``, the meshes and the dry run take the card unless
+    the caller names the CPU: with no card they raise, not fall back."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import dryrun, hillclimb, mesh, train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_reduced("smollm_135m")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.train(cfg, 1, 4, 16, mesh=object())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main(["--arch", "smollm-135m", "--shape", "train_4k"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main(["--gw"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hillclimb.main(["--arch", "smollm-135m", "--shape", "train_4k",
+                        "--variant", "sp"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.make_host_mesh()
