@@ -205,7 +205,15 @@ train. drive the training path: (a) the loss gradient of
    hd 64); K1's lane launch at (8, 8192) also
    against the 8 single-lane launches it replaces, with torch.baddbmm as
    the library call); print each Sinkhorn route's CTAs,
-   shared memory a CTA and barriers a call;
+   shared memory a CTA and barriers a call. After K1's, K2's and K3's
+   readings at the registry default, ``dispatch.autotune`` sweeps their
+   blocks at the main path's shapes, holds each kernel at its winner to
+   its plain version, asserts that ``block_size`` resolves to the winner
+   from the autotune cache (``repro_kernel_block_resolutions_total``),
+   times default and winner in turns, re-runs phase 4's two spar solves
+   and phase 5's grid solve under the tuned blocks within IMPL_VALUE_RTOL
+   (``tuned_solves``), dumps the records to
+   ``artifacts/autotune/torch-cuda.json`` and clears the cache;
 9. trace one grid solve, one spar solve (gather-fused), one unbalanced
    spar solve ("auto"), the low-rank solve cut to 3 outer steps and the
    n = 8192 quantized solve with its coarse solve cut to 1 outer step
@@ -222,7 +230,8 @@ spar lanes; K5's row its launches in the train run, ``launches_train``,
 and in each bf16 prefill of phase 7c, ``launches_archs``;
 K6's in the zamba2 gradient, ``launches_train_grad``; K5's in phase
 10's mesh run, ``launches_mesh``, and K6's in its split_proj forward,
-``launches_split_proj``); the last line is
+``launches_split_proj``; K1's, K2's and K3's rows their ``autotune``
+sweep, ``ms`` staying the default block's time); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
 package ``repro``.
 """
@@ -332,6 +341,22 @@ SMALL_VALUE_RTOL = 1e-4
 # = 2.4e-5 at 181⁴ (S = 11 on 132 SMs); 2e-4 also covers the plain
 # version's matvec order
 GW_COST_RTOL = 2e-4
+# phase 8's block sweeps at the main path's shapes: (family, candidates,
+# reps of the host clock a candidate)
+K1_TUNE = ("spar_cost", (64, 128, 256, 512, 1024), 20)
+K2_TUNE = ("spar_cost_fused", (256, 512, 768, 1024), 10)
+K3_TUNE = ("gw_cost", (32, 64, 128, 256), 50)
+
+
+def gw_cost_rtol(L: int, P: int, S: int, threads: int) -> float:
+    """K3's bound at ``threads`` a block: GW_COST_RTOL holds the terms a
+    256-thread block sums in sequence plus the plain version's allowance;
+    W = threads / 32 warps add ceil(L/S)·(ceil(p/W) per 192-p chunk) + W
+    + S terms in sequence instead, each term 2^-24 more."""
+    def terms(w):
+        per_p = sum(-(-min(192, P - p0) // w) for p0 in range(0, P, 192))
+        return -(-L // S) * per_p + w + S
+    return GW_COST_RTOL + max(0, terms(threads // 32) - terms(8)) * 2.0 ** -24
 # sinkhorn kernel-vs-plain: both flush the same subnormals and differ only
 # in each matvec's summation order; rtol 1e-4 plus 1e-6 of the largest
 # coupling entry
@@ -520,6 +545,52 @@ def bound(bytes_moved: float, ops: float, peak: float = FP32_FLOPS) -> tuple:
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def autotune_row(torch, dispatch, tune, bench, flops, nbytes,
+                 check_at) -> dict:
+    """Sweep a family's block with ``dispatch.autotune`` (one warm call,
+    then the host clock over the reps, each call ending in
+    ``torch.cuda.synchronize()``); hold the kernel at the winner to its
+    plain version (``check_at(block)`` returns its max abs error); assert
+    that ``block_size`` now resolves to the winner from the autotune cache
+    and that the resolution counter saw it; then time the default and the
+    winner on CUDA events in turns (default, tuned, tuned, default). The
+    row's ``autotune`` object."""
+    from repro_torch.obs.registry import registry as obs_registry
+
+    family, candidates, reps = tune
+    default = dispatch.registry()[family].default_block
+    best = dispatch.autotune(family, candidates, bench, reps=reps,
+                             flops_per_call=flops, bytes_per_call=nbytes)
+    record = dispatch.autotune_records()[-1]
+    if best is None or sorted(map(int, record["timings_s"])) != sorted(
+            candidates):
+        raise AssertionError(f"autotune {family}: a candidate was refused: "
+                             f"{record if best is not None else None}")
+    err = check_at(best)
+    if dispatch.block_size(family) != best:
+        raise AssertionError(f"block_size({family!r}) is not the winner")
+    series = obs_registry().snapshot()["metrics"][
+        "repro_kernel_block_resolutions_total"]["series"]
+    from_cache = sum(r["value"] for r in series if r["labels"] == {
+        "family": family, "source": "autotune"})
+    if from_cache < 1:
+        raise AssertionError(f"{family}: no resolution from the autotune "
+                             f"cache counted")
+    turns = {"default": [], "tuned": []}
+    for name in ("default", "tuned", "tuned", "default"):
+        block = default if name == "default" else best
+        turns[name].append(time_ms(torch, lambda: bench(block), reps))
+    return {"candidates": list(candidates),
+            "timings_ms": {k: 1e3 * v for k, v in
+                           record["timings_s"].items()},
+            "best_block": best, "default_block": default,
+            "tuned_ms": sum(turns["tuned"]) / 2, "turns_ms": turns,
+            "gflops": record.get("gflops"),
+            "gbytes_per_s": record.get("gbytes_per_s"),
+            "max_abs_err_tuned": err,
+            "resolutions_from_cache": from_cache}
 
 
 def check_coupling(torch, name, got, want) -> float:
@@ -1844,6 +1915,9 @@ def main(parent: Path | None = None) -> int:
     v_fused = float(out_fused.value)
     torch.cuda.synchronize()
     wall_fused = time.perf_counter() - t0
+    # (value, wall) of both solves, for phase 8's re-runs under the tuned
+    # blocks (phase 4b reuses the names v_auto and v_fused)
+    spar_main = {"auto": (v_auto, wall_auto), "pallas": (v_fused, wall_fused)}
     launches = dict(spar_cost.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
@@ -3353,8 +3427,18 @@ def main(parent: Path | None = None) -> int:
     plain_ms = time_ms(torch, lambda: spar_cost.spar_matvec_plain(
         Lmat, t, off), 20)
     lib_ms = time_ms(torch, lambda: torch.addmv(off, Lmat, t), 20)
-    bound_ms, bound_by = bound(4 * (s_main * s_main + 3 * s_main),
-                               2 * s_main * s_main)
+    k_bytes, k_ops = 4 * (s_main * s_main + 3 * s_main), 2 * s_main * s_main
+    bound_ms, bound_by = bound(k_bytes, k_ops)
+    # then the block sweep at this shape (one warp a row: every block
+    # sums each row in the same order)
+    k1_tuned = autotune_row(
+        torch, dispatch, K1_TUNE,
+        lambda b: spar_cost.spar_matvec_cuda(Lmat, t, off, threads=b),
+        k_ops, k_bytes, lambda b: check(
+            torch, f"spar_matvec main shape, {b} threads",
+            spar_cost.spar_matvec_cuda(Lmat, t, off, threads=b),
+            spar_cost.spar_matvec_plain(Lmat, t, off),
+            Lmat.abs() @ t.abs() + off.abs()))
     kernels.append({
         "name": "spar_matvec", "route": "cuda",
         "source": "src/repro_torch/csrc/spar_matvec.cu",
@@ -3367,7 +3451,7 @@ def main(parent: Path | None = None) -> int:
         "launches_diff": diff_launches["spar_matvec"],
         "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": lib_ms})
+        "bound_by": bound_by, "library_ms": lib_ms, "autotune": k1_tuned})
     del Lmat
     torch.cuda.empty_cache()
 
@@ -3415,7 +3499,7 @@ def main(parent: Path | None = None) -> int:
     perm, rows_s, cols_s = ops.sort_support(rows, cols)
     rows_s, cols_s = rows_s.int().contiguous(), cols_s.int().contiguous()
     perm32, t_s = perm.int().contiguous(), t[perm].contiguous()
-    threads = dispatch.block_size("spar_cost_fused")
+    threads = dispatch.registry()["spar_cost_fused"].default_block
     want = spar_cost.spar_cost_plain(Cx, Cy, rows, cols, t, off, problem.loss)
     scale = ref.spar_cost_error_scale(Cx, Cy, rows, cols, t, off,
                                       problem.loss)
@@ -3436,10 +3520,22 @@ def main(parent: Path | None = None) -> int:
                          want, scale)
     unsorted_ms = time_ms(torch, lambda: spar_cost.spar_cost_cuda(
         Cx, Cy, rows32, cols32, t, off, loss=problem.loss), 10)
+    k_bytes = 4 * (N_MAIN * N_MAIN * 2 + 5 * s_main)
+    k_ops = FUSED_OPS_PER_PAIR[problem.loss] * s_main * s_main
+    bound_ms, bound_by = bound(k_bytes, k_ops)
+    # the block sweep as the main path calls the kernel; a block of T
+    # threads sums s/T + 5 + T/32 terms in sequence, at most 141 (T = 256)
+    # against the 1029 that KERNEL_RTOL holds
+    k2_tuned = autotune_row(
+        torch, dispatch, K2_TUNE,
+        lambda b: spar_cost.launch_fused(Cx, Cy, rows_s, cols_s, t_s, off,
+                                         problem.loss, b, perm=perm32),
+        k_ops, k_bytes, lambda b: check(
+            torch, f"spar_cost_fused main shape, {b} threads",
+            spar_cost.launch_fused(Cx, Cy, rows_s, cols_s, t_s, off,
+                                   problem.loss, b, perm=perm32),
+            want, scale))
     del want, scale
-    bound_ms, bound_by = bound(
-        4 * (N_MAIN * N_MAIN * 2 + 5 * s_main),
-        FUSED_OPS_PER_PAIR[problem.loss] * s_main * s_main)
     kernels.append({
         "name": "spar_cost_fused", "route": "cuda",
         "source": "src/repro_torch/csrc/spar_cost_fused.cu",
@@ -3448,8 +3544,9 @@ def main(parent: Path | None = None) -> int:
         "launches_unbalanced": ugw_launches["spar_cost_fused"],
         "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None})
+        "bound_by": bound_by, "library_ms": None, "autotune": k2_tuned})
     other_shapes = [{**kernels[-1], "ms": unsorted_ms, "launches": None,
+                     "autotune": None,
                      "max_abs_err": err_unsorted,
                      "shape": f"n={N_MAIN} s={s_main} {problem.loss}, "
                               f"support in sampled order"}]
@@ -3467,15 +3564,75 @@ def main(parent: Path | None = None) -> int:
                                                      loss=GRID_LOSS), 50)
     plain_ms = time_ms(torch, lambda: gw_cost.gw_cost_plain(
         CxR, CyC, T_main, GRID_LOSS), 5, warmup=1)
-    bound_ms, bound_by = bound(4 * 4 * side * side,
-                               FUSED_OPS_PER_PAIR[GRID_LOSS] * side ** 4)
+    k_bytes, k_ops = 4 * 4 * side * side, \
+        FUSED_OPS_PER_PAIR[GRID_LOSS] * side ** 4
+    bound_ms, bound_by = bound(k_bytes, k_ops)
+    # the block sweep: fewer warps sum longer runs of p, so each block is
+    # held to the bound of its own order (gw_cost_rtol)
+    k3_splits = gw_cost.splits(side, side, side, dev)
+    k3_tuned = autotune_row(
+        torch, dispatch, K3_TUNE,
+        lambda b: gw_cost.gw_cost_cuda(CxR, CyC, T_main, loss=GRID_LOSS,
+                                       threads=b),
+        k_ops, k_bytes, lambda b: check(
+            torch, f"gw_cost main shape, {b} threads",
+            gw_cost.gw_cost_cuda(CxR, CyC, T_main, loss=GRID_LOSS,
+                                 threads=b),
+            gw_cost.gw_cost_plain(CxR, CyC, T_main, GRID_LOSS),
+            gw_ref.gw_cost_error_scale(CxR, CyC, T_main, GRID_LOSS),
+            rtol=gw_cost_rtol(side, side, k3_splits, b)))
+    k3_tuned["rtol_tuned"] = gw_cost_rtol(side, side, k3_splits,
+                                          k3_tuned["best_block"])
     kernels.append({
         "name": "gw_cost", "route": "cuda",
         "source": "src/repro_torch/csrc/gw_cost.cu",
         "replaces": "src/repro/kernels/gw_cost/gw_cost.py:58",
         "launches": grid_launches["gw_cost"], "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None})
+        "bound_by": bound_by, "library_ms": None, "autotune": k3_tuned})
+
+    # the main path under the tuned blocks: phase 4's two spar solves and
+    # phase 5's grid solve, each against its value there
+    tuned_solves = {}
+    for name, run, (v_then, wall_then), kmod, kname in (
+            ("auto", lambda: repro_torch.solve(
+                problem, generator=torch.Generator(dev).manual_seed(0)),
+             spar_main["auto"], spar_cost, "spar_matvec"),
+            ("pallas", lambda: repro_torch.solve(
+                problem, forced, support=support),
+             spar_main["pallas"], spar_cost, "spar_cost_fused"),
+            ("grid", lambda: repro_torch.solve(
+                grid_problem, grid_solver, support=grid_support),
+             (v_grid, wall_grid), gw_cost, "gw_cost")):
+        before = kmod.LAUNCHES[kname]
+        t0 = time.perf_counter()
+        out = run()
+        v = float(out.value)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = kmod.LAUNCHES[kname] - before
+        if launched <= 0 or abs(v - v_then) > IMPL_VALUE_RTOL * abs(v_then):
+            raise AssertionError(f"tuned {name} solve: {v} vs {v_then}, "
+                                 f"{kname} launched {launched} times")
+        tuned_solves[name] = {"value": v, "value_default_blocks": v_then,
+                              "wall_s": wall, "wall_s_default_blocks":
+                              wall_then, kname: launched}
+        if name == "auto":
+            tuned_solves[name]["bitwise"] = v == v_then and torch.equal(
+                out.coupling.vals, out_auto.coupling.vals)
+        del out
+    records = dispatch.dump_autotune_records()
+    dispatch.clear_autotune_cache()
+    for family, *_ in (K1_TUNE, K2_TUNE, K3_TUNE):
+        if dispatch.block_size(family) != \
+                dispatch.registry()[family].default_block:
+            raise AssertionError(f"{family}: the autotune cache survived")
+    print(json.dumps({"tuned_solves": tuned_solves,
+                      "autotune_records": str(records.relative_to(ROOT)),
+                      "blocks_after_clear": {
+                          f: dispatch.block_size(f) for f, *_ in (
+                              K1_TUNE, K2_TUNE, K3_TUNE)}}))
+    torch.cuda.empty_cache()
 
     # the three sinkhorn routes at their entry-point shapes, H = 50; with
     # --parent, the parent's kernel and this tree's on the same inputs,

@@ -65,6 +65,20 @@ def div_floor(num, den):
     return flush_subnormal(flush_subnormal(num) / den)
 
 
+def chunked_rows(fn, n_rows: int, chunk: int):
+    """Apply ``fn(start_index, chunk_size)`` over row chunks, concat results.
+
+    The last chunk is ragged (``n_rows - start`` rows); ``fn`` handles it.
+    """
+    chunk = min(chunk, n_rows)
+    return torch.cat([fn(lo, min(chunk, n_rows - lo))
+                      for lo in range(0, n_rows, chunk)], dim=0)
+
+
+def total_mass(x):
+    return torch.sum(x)
+
+
 def generalized_kl(p, q):
     """KL(p || q) = Σ p log(p/q) - m(p) + m(q) for nonnegative vectors."""
     p, q = flush_subnormal(p), flush_subnormal(q)

@@ -87,6 +87,10 @@ def _embed_on_mesh(table, tokens):
                               run_check=False)
 
 
+def unembed(p_head, x):
+    return x @ p_head
+
+
 def cross_entropy(logits, labels):
     """Mean CE over tokens, in float32. labels: integer ids.
 

@@ -26,6 +26,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import dispatch
+
 MODES = ("init", "shape", "axes")
 
 
@@ -66,3 +68,13 @@ class Builder:
         w = torch.randn(shape, generator=self.generator, device=self.device,
                         dtype=torch.float32)
         return w.mul_(scale).to(dtype)
+
+
+def make(init_fn, cfg, mode: str, generator: Optional[torch.Generator] = None,
+         dtype=torch.float32, device=None):
+    """``init_fn(b, cfg)`` read by a ``Builder`` in ``mode``; ``init``
+    draws from ``generator`` on ``device`` (the card unless given)."""
+    if mode == "init":
+        device = dispatch.resolve_device(device)
+    b = Builder(generator, device, dtype, mode)
+    return init_fn(b, cfg)

@@ -95,6 +95,116 @@ def test_scanner_catches_forbidden_imports(tmp_path):
         "repro", "jax", "benchmarks"]
 
 
+# modules and names of the reference with no counterpart in the port,
+# each with its reason; everything else must have one
+BY_DESIGN = {
+    "api/pytree.py": "JAX pytree registration: no torch transform "
+                     "unflattens the port's dataclasses",
+    "kernels/dispatch.py:interpret_mode": "the Pallas interpret flag: "
+                                          "nothing here is interpreted",
+    "kernels/dispatch.py:vmem_budget": "an on-chip budget: K4 picks its "
+                                       "route from the card "
+                                       "(sinkhorn.sinkhorn_route)",
+    "kernels/spar_cost/spar_cost.py:spar_cost_pallas":
+        "Pallas kernel: spar_cost_cuda, csrc/spar_cost_fused.cu",
+    "kernels/spar_cost/spar_cost.py:spar_matvec_pallas":
+        "Pallas kernel: spar_matvec_cuda, csrc/spar_matvec.cu",
+    "kernels/gw_cost/gw_cost.py:gw_cost_pallas":
+        "Pallas kernel: gw_cost_cuda, csrc/gw_cost.cu",
+    "kernels/sinkhorn/sinkhorn.py:sinkhorn_pallas":
+        "Pallas kernel: sinkhorn_cuda, csrc/sinkhorn.cu",
+    "kernels/flash_attention/flash_attention.py:flash_attention_pallas":
+        "Pallas kernel: flash_attention_cuda, csrc/flash_attention.cu",
+    "kernels/flash_attention/flash_attention.py:pltpu_or_fallback":
+        "the Pallas kernel's VMEM scratch: the CUDA kernel declares its "
+        "shared memory itself",
+    "kernels/ssd/ssd.py:ssd_intra_pallas":
+        "Pallas kernel: ssd_intra_cuda, csrc/ssd_intra.cu",
+    "launch/dryrun.py:parse_collectives": "reads XLA's HLO text: the dry "
+                                          "run tallies through a dispatch "
+                                          "mode",
+    "launch/dryrun.py:cost_extrapolate": "reads XLA's cost_analysis: the "
+                                         "dry run tallies at full depth",
+    "serve/server.py:enable_compilation_cache": "there is no executable "
+                                                "cache to enable",
+}
+
+
+def _bound_names(body, public_only):
+    """Names a module body binds at its top level (in ``if`` and ``try``
+    blocks too): functions, classes and assignments, and with
+    ``public_only=False`` imports as well."""
+    out = set()
+    for node in body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            for t in targets:
+                for e in (t.elts if isinstance(t, (ast.Tuple, ast.List))
+                          else [t]):
+                    if isinstance(e, ast.Name):
+                        out.add(e.id)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)) \
+                and not public_only:
+            out.update((a.asname or a.name).split(".")[0]
+                       for a in node.names)
+        elif isinstance(node, ast.If):
+            out |= _bound_names(node.body + node.orelse, public_only)
+        elif isinstance(node, ast.Try):
+            out |= _bound_names(node.body + node.orelse + node.finalbody
+                                + [n for h in node.handlers
+                                   for n in h.body], public_only)
+    return {n for n in out if not (public_only and n.startswith("_"))}
+
+
+def _missing_counterparts(ref_root, port_root):
+    """Modules of ``ref_root`` with no file under ``port_root``, and public
+    top-level names of a reference module that its port module does not
+    bind (defined or imported): ``["mod.py", "mod.py:name", ...]``."""
+    missing = []
+    for ref in sorted(ref_root.rglob("*.py")):
+        rel = ref.relative_to(ref_root).as_posix()
+        port = port_root / rel
+        if not port.exists():
+            missing.append(rel)
+            continue
+        want = _bound_names(ast.parse(ref.read_text()).body, True)
+        have = _bound_names(ast.parse(port.read_text()).body, False)
+        missing += [f"{rel}:{name}" for name in sorted(want - have)]
+    return missing
+
+
+def test_every_reference_module_and_name_has_a_counterpart():
+    """Parsed with ``ast``, importing neither package: every module of
+    ``src/repro/`` has its file under ``src/repro_torch/`` and every
+    public top-level name its counterpart there, but what ``BY_DESIGN``
+    lists with its reason."""
+    missing = _missing_counterparts(ROOT / "src" / "repro",
+                                    ROOT / "src" / "repro_torch")
+    assert sorted(missing) == sorted(BY_DESIGN), (
+        f"no counterpart: {sorted(set(missing) - set(BY_DESIGN))}; "
+        f"listed but present: {sorted(set(BY_DESIGN) - set(missing))}")
+
+
+def test_counterpart_guard_catches_a_missing_name(tmp_path):
+    ref, port = tmp_path / "ref", tmp_path / "port"
+    for root in (ref, port):
+        (root / "core").mkdir(parents=True)
+    (ref / "core" / "utils.py").write_text(
+        "import os\nX, _Y = 1, 2\ndef total_mass(x):\n    return x\n"
+        "class Geometry:\n    pass\n"
+        "try:\n    def fast():\n        pass\nexcept ImportError:\n"
+        "    pass\n")
+    (ref / "core" / "extra.py").write_text("Z = 0\n")
+    (port / "core" / "utils.py").write_text(
+        "from m import Geometry\nX = 1\ndef fast():\n    pass\n")
+    assert _missing_counterparts(ref, port) == [
+        "core/extra.py", "core/utils.py:total_mass"]
+
+
 def test_entry_points_raise_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     n = 300
