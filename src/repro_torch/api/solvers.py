@@ -11,6 +11,12 @@ from the live problem data (costs, ``M`` / features, ``fused_penalty``,
 is the envelope gradient. Each passes the reference's per-iteration
 objective as ``obj_fn``, which the loop evaluates for ``trace=True``
 only.
+
+The balanced ``spar_gw`` path records the spans ``solver.sample``,
+``solver.cost_build`` (attribute ``route``: K1, K2 or plain), one
+``solver.cost`` and one ``solver.sinkhorn`` an outer step, and
+``solver.value`` (``repro_torch.obs``); the loop adds ``solver.check``
+and ``solver.host_read`` (``health/loop.py``).
 """
 from __future__ import annotations
 
@@ -40,7 +46,8 @@ from repro_torch.core.utils import (
     quadratic_kl,
     scalar,
 )
-from repro_torch.kernels.spar_cost.ops import make_spar_cost_fn
+from repro_torch.kernels.spar_cost.ops import kernel_route, make_spar_cost_fn
+from repro_torch.obs.span import span
 
 _REGISTRY: dict = {}
 
@@ -113,22 +120,28 @@ def _spar_pga_step(T, scale, cost_fn, a, b, rows, cols, w, logw, m: int,
     The iteration cost is C = α·(L @ T̃) + (1-α)·lin; in the stable path
     the cost function writes logK = -C/ε + log w (+ log T̃) directly.
     ``scale`` is the loop's ε-rescue escalation (1.0 until a rescue).
+    Spans: ``solver.cost`` (the kernel's assembly, one cost launch) and
+    ``solver.sinkhorn`` (the whole inner loop).
     """
     epsilon = epsilon * scale
     if stable:
-        off = logw - ((1.0 - alpha) / epsilon) * lin
+        with span("solver.cost"):
+            off = logw - ((1.0 - alpha) / epsilon) * lin
+            if reg == "prox":
+                off = off + log_floor(T)
+            logK = cost_fn((-alpha / epsilon) * T, off)
+        with span("solver.sinkhorn"):
+            return sparse_sinkhorn_logdomain(a, b, rows, cols, logK, m, n,
+                                             inner_iters, tol=inner_tol)
+    with span("solver.cost"):
+        C = cost_fn(alpha * T, (1.0 - alpha) * lin)
+        Cs = C - torch.min(C)          # constant shift — Sinkhorn-invariant
+        K = flush_subnormal(flush_subnormal(torch.exp(-Cs / epsilon)) * w)
         if reg == "prox":
-            off = off + log_floor(T)
-        logK = cost_fn((-alpha / epsilon) * T, off)
-        return sparse_sinkhorn_logdomain(a, b, rows, cols, logK, m, n,
-                                         inner_iters, tol=inner_tol)
-    C = cost_fn(alpha * T, (1.0 - alpha) * lin)
-    Cs = C - torch.min(C)          # constant shift — Sinkhorn-invariant
-    K = flush_subnormal(flush_subnormal(torch.exp(-Cs / epsilon)) * w)
-    if reg == "prox":
-        K = flush_subnormal(K * T)
-    return sparse_sinkhorn(a, b, rows, cols, K, m, n, inner_iters,
-                           tol=inner_tol)
+            K = flush_subnormal(K * T)
+    with span("solver.sinkhorn"):
+        return sparse_sinkhorn(a, b, rows, cols, K, m, n, inner_iters,
+                               tol=inner_tol)
 
 
 def _health_kw(solver):
@@ -218,22 +231,27 @@ class SparGWSolver:
         Cx, a = problem.geom_x.cost_matrix, problem.geom_x.weights
         Cy, b = problem.geom_y.cost_matrix, problem.geom_y.weights
         m, n = a.shape[0], b.shape[0]
-        probs = sampling.balanced_probs(a, b, self.shrink)
-        if support is None:
-            rows, cols = sampling.sample_pairs(generator, probs, self.s)
-        else:
-            rows, cols = _injected_support(support, ((self.s,), (self.s,)),
-                                           m, n, a.device)
-        p = probs.pair_prob(rows, cols)                     # (s,)
-        w = 1.0 / (self.s * p)                              # importance adj.
-        T0 = flush_subnormal(a[rows] * b[cols])             # step 4 init on S
-        cost_fn = make_spar_cost_fn(Cx, Cy, rows, cols, problem.loss,
-                                    impl=self.cost_impl, chunk=self.cost_chunk)
+        with span("solver.sample"):
+            probs = sampling.balanced_probs(a, b, self.shrink)
+            if support is None:
+                rows, cols = sampling.sample_pairs(generator, probs, self.s)
+            else:
+                rows, cols = _injected_support(
+                    support, ((self.s,), (self.s,)), m, n, a.device)
+            p = probs.pair_prob(rows, cols)                 # (s,)
+            w = 1.0 / (self.s * p)                          # importance adj.
+            logw = torch.log(w)
+            T0 = flush_subnormal(a[rows] * b[cols])         # step 4 init on S
+        with span("solver.cost_build",
+                  route=kernel_route(self.cost_impl, self.s, a.device)):
+            cost_fn = make_spar_cost_fn(Cx, Cy, rows, cols, problem.loss,
+                                        impl=self.cost_impl,
+                                        chunk=self.cost_chunk)
         fused = problem.is_fused
         alpha = scalar(problem.fused_penalty) if fused else 1.0
         lin = problem.linear_cost_at(rows, cols) if fused else 0.0
         step = partial(_spar_pga_step, cost_fn=cost_fn, a=a, b=b, rows=rows,
-                       cols=cols, w=w, logw=torch.log(w), m=m, n=n,
+                       cols=cols, w=w, logw=logw, m=m, n=n,
                        epsilon=self.epsilon, inner_iters=self.inner_iters,
                        inner_tol=self.inner_tol, reg=self.reg,
                        stable=self.stable, alpha=alpha, lin=lin)
@@ -250,12 +268,13 @@ class SparGWSolver:
             **_health_kw(self))
         # Step 8: plug-in objective on the sparse support, O(s²), from the
         # live data (fused_penalty too: α may carry a gradient)
-        quad = torch.sum(T * cost_fn(T))
-        if fused:
-            value = _fused_value(quad, torch.sum(lin * T),
-                                 problem.fused_penalty)
-        else:
-            value = quad
+        with span("solver.value"):
+            quad = torch.sum(T * cost_fn(T))
+            if fused:
+                value = _fused_value(quad, torch.sum(lin * T),
+                                     problem.fused_penalty)
+            else:
+                value = quad
         return GWOutput(value=value, coupling=SparseCoupling(rows, cols, T),
                         errors=errors, converged=converged, n_iters=n_iters,
                         status=status, trace=trace)

@@ -30,6 +30,14 @@ host read per outer iteration, and a lane that converged, died or ran out
 of budget keeps its bits from then on, as the reference's lane freeze
 does. Each lane gets the status that :func:`health_loop` gives it solo.
 
+Spans (``repro_torch.obs``): ``solver.check`` over each step's
+bookkeeping after ``step_fn`` (fault hook, mass, finiteness, ``err_fn``,
+delta, trace writes, the iterate's update, the verdict), and
+``solver.host_read`` around each blocking read of the device, with its
+``site``: ``"health"`` (the verdict, inside ``solver.check``), ``"tol"``
+(the tolerance test of :func:`health_loop`) and ``"last_err"`` (the
+last marginal error, once after the loop).
+
 With ``trace=True`` the loop also fills a
 :class:`~repro_torch.obs.trace.ConvergenceTrace`: per iteration the
 marginal error, the objective (``obj_fn``, evaluated only then), the
@@ -56,6 +64,7 @@ from repro_torch.health.status import (
     STALLED,
     SolveStatus,
 )
+from repro_torch.obs.span import span
 from repro_torch.obs.trace import ConvergenceTrace, empty_trace
 
 _TINY = 1e-30
@@ -140,43 +149,52 @@ def health_loop(step_fn: Callable, err_fn: Callable, T0, max_iters: int,
             T_new = step_fn(T_in, scale)
         else:
             T_new = step_fn(T_in)
-        if fault is not None and fault.site == "iterate":
-            T_new = fault.apply(T_new, i)
-        l1 = _tree_l1(T_new)
-        healthy = bool(tree_finite(T_new) & (l1 > mass_floor)
+        with span("solver.check"):
+            if fault is not None and fault.site == "iterate":
+                T_new = fault.apply(T_new, i)
+            l1 = _tree_l1(T_new)
+            verdict = (tree_finite(T_new) & (l1 > mass_floor)
                        & (l1 < mass_ceil))
-        if trace:
-            tr.mass[i] = l1
-            tr.scale[i] = scale
-            tr.rescued[i] = float(not healthy and n_rescues < max_rescues)
-        if healthy:
-            err = err_fn(T_new).float()
-            errors[i] = err
-            last_err = err
-            if tol > 0 or trace:
-                num = _tree_l1(tuple(x - y for x, y in
-                                     zip(_leaves(T_new), _leaves(T))))
-                delta = num / torch.clamp_min(_tree_l1(T), _TINY)
-            if tol > 0:
-                conv = bool(delta <= tol)
+            with span("solver.host_read", site="health"):
+                healthy = bool(verdict)
             if trace:
-                tr.err[i] = err
-                tr.delta[i] = delta
-                if obj_fn is not None:
-                    tr.objective[i] = obj_fn(T_new)
-            T = T_new
-        else:
-            # restart from the current, still-healthy T with escalated
-            # scale, or end the solve
-            if fail_iter < 0:
-                fail_iter = i
-            if n_rescues < max_rescues:
-                n_rescues += 1
+                tr.mass[i] = l1
+                tr.scale[i] = scale
+                tr.rescued[i] = float(not healthy and n_rescues < max_rescues)
+            if healthy:
+                err = err_fn(T_new).float()
+                errors[i] = err
+                last_err = err
+                if tol > 0 or trace:
+                    num = _tree_l1(tuple(x - y for x, y in
+                                         zip(_leaves(T_new), _leaves(T))))
+                    delta = num / torch.clamp_min(_tree_l1(T), _TINY)
+                if tol > 0:
+                    met = delta <= tol
+                    with span("solver.host_read", site="tol"):
+                        conv = bool(met)
+                if trace:
+                    tr.err[i] = err
+                    tr.delta[i] = delta
+                    if obj_fn is not None:
+                        tr.objective[i] = obj_fn(T_new)
+                T = T_new
             else:
-                dead = True
+                # restart from the current, still-healthy T with escalated
+                # scale, or end the solve
+                if fail_iter < 0:
+                    fail_iter = i
+                if n_rescues < max_rescues:
+                    n_rescues += 1
+                else:
+                    dead = True
         i += 1      # rescues consume budget too
 
-    last = math.nan if last_err is None else float(last_err)
+    if last_err is None:
+        last = math.nan
+    else:
+        with span("solver.host_read", site="last_err"):
+            last = float(last_err)
     if dead:
         code = DIVERGED
     elif conv and last > stall_err:
@@ -269,58 +287,62 @@ def health_loop_lanes(step_fn: Callable, err_fn: Callable, T0,
         T_in = (_poison_lanes(fault, at_iters, T, i)
                 if fault is not None and fault.site == "cost" else T)
         T_new = step_fn(T_in, scale)
-        if fault is not None and fault.site == "iterate":
-            T_new = _poison_lanes(fault, at_iters, T_new, i)
-        l1 = torch.sum(torch.abs(T_new), dim=red)
-        healthy = (torch.isfinite(T_new).flatten(1).all(dim=1)
-                   & (l1 > mass_floor) & (l1 < mass_ceil))
-        err = err_fn(T_new).float()
-        if tol > 0 or trace:
-            delta = (torch.sum(torch.abs(T_new - T), dim=red)
-                     / torch.clamp_min(torch.sum(torch.abs(T), dim=red),
-                                       _TINY))
-        met = delta <= tol if tol > 0 else torch.zeros_like(healthy)
-        acc = act & healthy
-        if trace:
-            rescued = (act & ~healthy & can_rescue).float()
-            for buf, val in ((tr.mass, l1), (tr.scale, scale.float()),
-                             (tr.rescued, rescued)):
-                buf[:, i] = torch.where(act, val, buf[:, i])
-            tr.err[:, i] = torch.where(acc, err, tr.err[:, i])
-            tr.delta[:, i] = torch.where(acc, delta, tr.delta[:, i])
-            if obj_fn is not None:
-                tr.objective[:, i] = torch.where(
-                    acc, obj_fn(T_new).float(), tr.objective[:, i])
-        errors[:, i] = torch.where(acc, err, errors[:, i])
-        last_err = torch.where(acc, err, last_err)
-        T = torch.where(lanes(acc), T_new, T)
-        healthy_h, met_h = torch.stack([healthy, met]).tolist()  # one read
-        rescues = 0
-        for b in range(B):
-            if not active[b]:
-                continue
-            n_iters[b] = i + 1      # rescues consume budget too
-            if healthy_h[b]:
-                accepted_any[b] = True
-                conv[b] = tol > 0 and bool(met_h[b])
-            else:
-                if fail_iter[b] < 0:
-                    fail_iter[b] = i
-                if n_rescues[b] < max_rescues:
-                    n_rescues[b] += 1
-                    rescues += 1
+        with span("solver.check"):
+            if fault is not None and fault.site == "iterate":
+                T_new = _poison_lanes(fault, at_iters, T_new, i)
+            l1 = torch.sum(torch.abs(T_new), dim=red)
+            healthy = (torch.isfinite(T_new).flatten(1).all(dim=1)
+                       & (l1 > mass_floor) & (l1 < mass_ceil))
+            err = err_fn(T_new).float()
+            if tol > 0 or trace:
+                delta = (torch.sum(torch.abs(T_new - T), dim=red)
+                         / torch.clamp_min(torch.sum(torch.abs(T), dim=red),
+                                           _TINY))
+            met = delta <= tol if tol > 0 else torch.zeros_like(healthy)
+            acc = act & healthy
+            if trace:
+                rescued = (act & ~healthy & can_rescue).float()
+                for buf, val in ((tr.mass, l1), (tr.scale, scale.float()),
+                                 (tr.rescued, rescued)):
+                    buf[:, i] = torch.where(act, val, buf[:, i])
+                tr.err[:, i] = torch.where(acc, err, tr.err[:, i])
+                tr.delta[:, i] = torch.where(acc, delta, tr.delta[:, i])
+                if obj_fn is not None:
+                    tr.objective[:, i] = torch.where(
+                        acc, obj_fn(T_new).float(), tr.objective[:, i])
+            errors[:, i] = torch.where(acc, err, errors[:, i])
+            last_err = torch.where(acc, err, last_err)
+            T = torch.where(lanes(acc), T_new, T)
+            verdicts = torch.stack([healthy, met])
+            with span("solver.host_read", site="health"):   # one read
+                healthy_h, met_h = verdicts.tolist()
+            rescues = 0
+            for b in range(B):
+                if not active[b]:
+                    continue
+                n_iters[b] = i + 1      # rescues consume budget too
+                if healthy_h[b]:
+                    accepted_any[b] = True
+                    conv[b] = tol > 0 and bool(met_h[b])
                 else:
-                    dead[b] = True
-        i += 1
-        still = [a and not (c or d) and i < max_iters
-                 for a, c, d in zip(active, conv, dead)]
-        if still != active and any(still):
-            act = on_device(still)
-        active = still
-        if rescues and any(active):
-            scale, can_rescue = rescue_state()
+                    if fail_iter[b] < 0:
+                        fail_iter[b] = i
+                    if n_rescues[b] < max_rescues:
+                        n_rescues[b] += 1
+                        rescues += 1
+                    else:
+                        dead[b] = True
+            i += 1
+            still = [a and not (c or d) and i < max_iters
+                     for a, c, d in zip(active, conv, dead)]
+            if still != active and any(still):
+                act = on_device(still)
+            active = still
+            if rescues and any(active):
+                scale, can_rescue = rescue_state()
 
-    last_h = last_err.tolist()
+    with span("solver.host_read", site="last_err"):
+        last_h = last_err.tolist()
     results = []
     for b in range(B):
         last = last_h[b] if accepted_any[b] else math.nan

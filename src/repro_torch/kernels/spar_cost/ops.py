@@ -60,6 +60,16 @@ def resolve_impl(impl: str, s: int, device) -> str:
     return "pallas" if torch.device(device).type == "cuda" else "jnp"
 
 
+def kernel_route(impl: str, s: int, device) -> str:
+    """The kernel a cost closure of this impl launches: ``"K1"`` (the
+    materialized matvec) or ``"K2"`` (the gather-fused kernel) on the card,
+    ``"plain"`` where neither runs (``"jnp"``, or CPU tensors)."""
+    if torch.device(device).type != "cuda":
+        return "plain"
+    return {"materialized": "K1", "pallas": "K2"}.get(
+        resolve_impl(impl, s, device), "plain")
+
+
 def _vec(x, s: int, device):
     """A scalar or (s,) offset as a contiguous (s,) float32 on ``device``."""
     x = torch.as_tensor(x, dtype=torch.float32, device=device)

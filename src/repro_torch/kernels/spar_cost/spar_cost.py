@@ -46,6 +46,7 @@ from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.cuda_lib import LOSS_CODES, check_tensor, raise_on
 from repro_torch.kernels.dispatch import refuse_grad
 from repro_torch.kernels.spar_cost.ref import spar_cost_ref
+from repro_torch.obs.span import span
 
 LAUNCHES = {"spar_matvec": 0, "spar_cost_fused": 0}
 
@@ -244,12 +245,15 @@ def spar_cost_cuda(Cx, Cy, rows, cols, t, off, loss: str = "l2",
 
 def check_support_range(rows, cols, m: int, n: int):
     """Raise unless 0 <= rows < m and 0 <= cols < n: the kernel reads Cx
-    and Cy at these indices. One host sync."""
+    and Cy at these indices. One host sync (a ``solver.host_read`` span,
+    site ``cost_range``)."""
     if not rows.shape[0]:
         return
     lo_r, hi_r = torch.aminmax(rows)
     lo_c, hi_c = torch.aminmax(cols)
-    lo_r, hi_r, lo_c, hi_c = torch.stack([lo_r, hi_r, lo_c, hi_c]).tolist()
+    with span("solver.host_read", site="cost_range"):
+        lo_r, hi_r, lo_c, hi_c = torch.stack(
+            [lo_r, hi_r, lo_c, hi_c]).tolist()
     if lo_r < 0 or hi_r >= m or lo_c < 0 or hi_c >= n:
         raise IndexError(f"support indices out of range: rows in "
                          f"[{lo_r}, {hi_r}] for m={m}, cols in "

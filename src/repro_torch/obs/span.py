@@ -23,16 +23,26 @@ iteration's value recomputation).
 The record a span yields is a plain dict; callers may attach attributes
 mid-flight (``with span("dispatch") as sp: ...; sp["recovered"] = True``).
 
-With ``REPRO_OBS_PROFILER=1`` (or ``configure(profiler_annotations=True)``)
-every span also enters a ``torch.profiler.record_function`` of the same
-name, so host spans land as named regions in ``torch.profiler`` traces
-with no change at the call sites.
+Each record also carries a process-unique ``id``, its enclosing span's
+``parent_id`` and a roll-up ``sub``: a span that closes adds itself to
+every span still open on its thread's stack, as ``sub[name] = [count,
+seconds]``. So a ``solve.dispatch`` record holds the totals of the
+``solver.*`` spans under it, at any depth, and a reader needs neither a
+tree walk nor the child records (which a time-window filter or the
+ring's bound may have dropped).
 
-Overhead per span is two ``perf_counter`` calls plus one deque append
-(~1 µs).
+With ``REPRO_OBS_PROFILER=1`` in the environment at import (or
+``configure(profiler_annotations=True)``) every span also enters a
+``torch.profiler.record_function`` of the same name, in whatever thread
+it runs, so host spans land as named regions in ``torch.profiler``
+traces with no change at the call sites.
+
+Overhead per span is two ``perf_counter`` calls, one deque append and
+one roll-up a still-open ancestor (~1-2 µs).
 """
 from __future__ import annotations
 
+import itertools
 import os
 import threading
 import time
@@ -49,23 +59,20 @@ _T0 = time.perf_counter()        # process-relative clock zero
 _lock = threading.Lock()
 _records: "deque[dict]" = deque(maxlen=MAX_SPANS)
 _tls = threading.local()
+_ids = itertools.count(1)        # next() is atomic under the GIL
 
-# None = resolve from the REPRO_OBS_PROFILER env var at span entry
-_profiler_annotations: Optional[bool] = None
+# the REPRO_OBS_PROFILER env var, read once at import
+_ENV_PROFILER = os.environ.get("REPRO_OBS_PROFILER",
+                               "").strip().lower() in _TRUTHY
+_profiler_annotations = _ENV_PROFILER
 
 
 def configure(profiler_annotations: Optional[bool] = None) -> None:
-    """Set the ``torch.profiler`` annotation pass-through (None = defer to
-    the environment)."""
+    """Set the ``torch.profiler`` annotation pass-through (None = what the
+    environment said at import)."""
     global _profiler_annotations
-    _profiler_annotations = profiler_annotations
-
-
-def _use_profiler() -> bool:
-    if _profiler_annotations is not None:
-        return _profiler_annotations
-    return os.environ.get("REPRO_OBS_PROFILER",
-                          "").strip().lower() in _TRUTHY
+    _profiler_annotations = (_ENV_PROFILER if profiler_annotations is None
+                             else profiler_annotations)
 
 
 def _stack() -> List[dict]:
@@ -82,7 +89,8 @@ def span(name: str, **attrs) -> Iterator[dict]:
     Extra keyword arguments become attributes of the record; more can be
     attached to the yielded dict before the block exits. Records carry
     ``name`` / ``start_s`` (process-relative) / ``duration_s`` /
-    ``depth`` / ``parent`` / ``thread``.
+    ``depth`` / ``parent`` / ``thread`` / ``id`` / ``parent_id`` /
+    ``sub`` (``{name: [count, seconds]}`` of the spans closed under it).
     """
     stack = _stack()
     rec: Dict = {
@@ -92,11 +100,14 @@ def span(name: str, **attrs) -> Iterator[dict]:
         "depth": len(stack),
         "parent": stack[-1]["name"] if stack else None,
         "thread": threading.current_thread().name,
+        "id": next(_ids),
+        "parent_id": stack[-1]["id"] if stack else None,
+        "sub": {},
     }
     rec.update(attrs)
     stack.append(rec)
     ann = None
-    if _use_profiler():
+    if _profiler_annotations:
         try:
             import torch
             ann = torch.profiler.record_function(name)
@@ -107,13 +118,20 @@ def span(name: str, **attrs) -> Iterator[dict]:
     try:
         yield rec
     finally:
-        rec["duration_s"] = time.perf_counter() - t_in
+        dt = rec["duration_s"] = time.perf_counter() - t_in
         if ann is not None:
             try:
                 ann.__exit__(None, None, None)
             except Exception:  # noqa: BLE001
                 pass
         stack.pop()
+        for up in stack:
+            slot = up["sub"].get(name)
+            if slot is None:
+                up["sub"][name] = [1, dt]
+            else:
+                slot[0] += 1
+                slot[1] += dt
         with _lock:
             _records.append(rec)
 
@@ -125,7 +143,8 @@ def spans() -> List[dict]:
     ``start_s`` restores the lifecycle order a reader expects.)
     """
     with _lock:
-        out = [dict(r) for r in _records]
+        out = [dict(r, sub={k: list(v) for k, v in r["sub"].items()})
+               for r in _records]
     return sorted(out, key=lambda r: r["start_s"])
 
 

@@ -29,6 +29,10 @@ bucket's signature. This is a dispatch, not a ``try``/``except``: a
 kernel that fails to build or launch raises, nothing falls back to the
 CPU or to a plain version. Flushes run without autograd: a served value
 is a number, not a differentiable loss.
+
+The spar lanes record the solo path's spans (``api/solvers.py``):
+``solver.sample``, ``solver.cost_build``, one ``solver.cost`` and one
+``solver.sinkhorn`` an outer step for the whole flush, ``solver.value``.
 """
 from __future__ import annotations
 
@@ -51,7 +55,11 @@ from repro_torch.core.sinkhorn import (
 )
 from repro_torch.core.utils import flush_subnormal, log_floor, scalar
 from repro_torch.health.loop import health_loop_lanes
-from repro_torch.kernels.spar_cost.ops import make_spar_cost_fn_lanes
+from repro_torch.kernels.spar_cost.ops import (
+    kernel_route,
+    make_spar_cost_fn_lanes,
+)
+from repro_torch.obs.span import span
 from repro_torch.serve.batching import LaneStack
 
 # solver families whose lanes run as one batched solve (balanced problems)
@@ -174,19 +182,21 @@ def _spar_lanes(stack: LaneStack) -> list:
         raise ValueError("SparGWSolver draws a random support: every lane "
                          "needs a generator")
     dev = p0.geom_x.weights.device
-    a = torch.stack([p.geom_x.weights for p in problems])
-    b = torch.stack([p.geom_y.weights for p in problems])
-    m, n = a.shape[1], b.shape[1]
-    rows, cols, w = [], [], []
-    for a_k, b_k, gen in zip(a, b, gens):      # each lane draws its own
-        probs = sampling.balanced_probs(a_k, b_k, sv.shrink)
-        r, c = sampling.sample_pairs(gen, probs, s)
-        rows.append(r)
-        cols.append(c)
-        w.append(1.0 / (s * probs.pair_prob(r, c)))
-    rows, cols, w = torch.stack(rows), torch.stack(cols), torch.stack(w)
-    logw = torch.log(w)
-    T0 = flush_subnormal(torch.gather(a, 1, rows) * torch.gather(b, 1, cols))
+    with span("solver.sample"):
+        a = torch.stack([p.geom_x.weights for p in problems])
+        b = torch.stack([p.geom_y.weights for p in problems])
+        m, n = a.shape[1], b.shape[1]
+        rows, cols, w = [], [], []
+        for a_k, b_k, gen in zip(a, b, gens):      # each lane draws its own
+            probs = sampling.balanced_probs(a_k, b_k, sv.shrink)
+            r, c = sampling.sample_pairs(gen, probs, s)
+            rows.append(r)
+            cols.append(c)
+            w.append(1.0 / (s * probs.pair_prob(r, c)))
+        rows, cols, w = torch.stack(rows), torch.stack(cols), torch.stack(w)
+        logw = torch.log(w)
+        T0 = flush_subnormal(torch.gather(a, 1, rows)
+                             * torch.gather(b, 1, cols))
     lin = (torch.stack([p.linear_cost_at(r, c)
                         for p, r, c in zip(problems, rows, cols)])
            if fused else 0.0)
@@ -195,24 +205,29 @@ def _spar_lanes(stack: LaneStack) -> list:
     alpha = alpha64.float()[:, None]
     rest = _per_lane([1.0 - x for x in alphas], torch.float32, dev)[:, None]
     eps = _per_lane([float(x.epsilon) for x in solvers], torch.float64, dev)
-    cost_fn = make_spar_cost_fn_lanes(
-        [p.geom_x.cost_matrix for p in problems],
-        [p.geom_y.cost_matrix for p in problems], rows, cols, loss,
-        impl=sv.cost_impl, chunk=sv.cost_chunk)
+    with span("solver.cost_build", route=kernel_route(sv.cost_impl, s, dev)):
+        cost_fn = make_spar_cost_fn_lanes(
+            [p.geom_x.cost_matrix for p in problems],
+            [p.geom_y.cost_matrix for p in problems], rows, cols, loss,
+            impl=sv.cost_impl, chunk=sv.cost_chunk)
 
     def step(T, scale):
         e = eps * scale
         if sv.stable:
-            off = logw - ((1.0 - alpha64) / e).float()[:, None] * lin
-            if sv.reg == "prox":
-                off = off + log_floor(T)
-            logK = cost_fn((-alpha64 / e).float()[:, None] * T, off)
-            return sparse_sinkhorn_logdomain_lanes(
-                a, b, rows, cols, logK, sv.inner_iters, tol=sv.inner_tol)
-        C = cost_fn(alpha * T, rest * lin)
-        K = _plain_kernel_lanes(C, w, T, e.float()[:, None], sv.reg)
-        return sparse_sinkhorn_lanes(a, b, rows, cols, K, sv.inner_iters,
-                                     tol=sv.inner_tol)
+            with span("solver.cost"):
+                off = logw - ((1.0 - alpha64) / e).float()[:, None] * lin
+                if sv.reg == "prox":
+                    off = off + log_floor(T)
+                logK = cost_fn((-alpha64 / e).float()[:, None] * T, off)
+            with span("solver.sinkhorn"):
+                return sparse_sinkhorn_logdomain_lanes(
+                    a, b, rows, cols, logK, sv.inner_iters, tol=sv.inner_tol)
+        with span("solver.cost"):
+            C = cost_fn(alpha * T, rest * lin)
+            K = _plain_kernel_lanes(C, w, T, e.float()[:, None], sv.reg)
+        with span("solver.sinkhorn"):
+            return sparse_sinkhorn_lanes(a, b, rows, cols, K, sv.inner_iters,
+                                         tol=sv.inner_tol)
 
     r_flat, c_flat = _lane_flat(rows, m), _lane_flat(cols, n)
     B = len(problems)
@@ -234,11 +249,12 @@ def _spar_lanes(stack: LaneStack) -> list:
 
     results = health_loop_lanes(step, err_fn, T0, sv.outer_iters, sv.tol,
                                 obj_fn=obj_fn, **_health_kw(stack))
-    T = torch.stack([r.iterate for r in results])
-    values = list(torch.sum(T * cost_fn(T), dim=1))    # step 8, all lanes
-    if fused:
-        values = [_fused_value(q, torch.sum(lin_k * T_k), p.fused_penalty)
-                  for p, q, lin_k, T_k in zip(problems, values, lin, T)]
+    with span("solver.value"):
+        T = torch.stack([r.iterate for r in results])
+        values = list(torch.sum(T * cost_fn(T), dim=1))    # step 8, all lanes
+        if fused:
+            values = [_fused_value(q, torch.sum(lin_k * T_k), p.fused_penalty)
+                      for p, q, lin_k, T_k in zip(problems, values, lin, T)]
     return _outputs(results, values,
                     [SparseCoupling(r, c, res.iterate)
                      for r, c, res in zip(rows, cols, results)])

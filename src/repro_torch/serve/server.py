@@ -41,10 +41,15 @@ DIVERGED/STALLED is — under ``on_failure="fallback"`` — re-solved solo
 through ``repro_torch.solve(..., on_failure="fallback")`` at its original
 shape, walking the solver ladder for that request only.
 
-Telemetry: the spans ``serve.submit``, ``serve.pad``, ``serve.batch``,
-``serve.dispatch`` (the worker's run of a flush), ``serve.block`` and
-``serve.fallback``, and the ``repro_serve_*`` / ``repro_cache_*``
-counters of :class:`ServeMetrics` and :class:`GeometryCache`.
+Telemetry: the spans ``serve.submit`` (attribute ``rid``),
+``serve.pad``, ``serve.dispatch`` (the worker's run of a flush:
+``lanes``, ``source``, ``route``, ``rids``, the real lanes' request ids
+in lane order, and ``queued_s``, how long the flush waited in the
+worker's queue), ``serve.block`` (``rid``) and ``serve.fallback``
+(``rid``); inside ``serve.dispatch`` the solver's spans (``solver.*``,
+``serve/lanes.py``) and a ``solver.host_read`` (site ``values``) for the
+values' read; and the ``repro_serve_*`` / ``repro_cache_*`` counters of
+:class:`ServeMetrics` and :class:`GeometryCache`.
 """
 from __future__ import annotations
 
@@ -184,15 +189,17 @@ class _Batch:
     def run(self) -> None:
         """Solve every lane, read the values on the host, mark done. An
         exception is kept for ``result`` to raise."""
+        queued_s = time.perf_counter() - self.dispatched_at
         try:
             problem, solver = self.items[0][:2]
             with span("serve.dispatch", lanes=self.n_lanes,
-                      source=self.source,
-                      route=lane_route(problem, solver)):
+                      source=self.source, route=lane_route(problem, solver),
+                      rids=list(self.rids), queued_s=queued_s):
                 self.outputs = run_lanes(stack_items(self.items))
-                self.values = torch.stack(
-                    [o.value.detach().float() for o in self.outputs]
-                ).tolist()
+                values = torch.stack(
+                    [o.value.detach().float() for o in self.outputs])
+                with span("solver.host_read", site="values"):
+                    self.values = values.tolist()
         except Exception as err:  # noqa: BLE001 — re-raised by result()
             self.error = err
         finally:
@@ -288,7 +295,7 @@ class GWServer:
                generator: Optional[torch.Generator] = None,
                validate: bool = True) -> int:
         """Enqueue one solve request; returns its request id."""
-        with span("serve.submit"):
+        with span("serve.submit") as sp:
             if solver is None:
                 solver = select_solver(problem)
             elif isinstance(solver, str):
@@ -316,7 +323,7 @@ class GWServer:
             item = (padded, solver, state)
             sig = batch_signature(item)
             with self._lock:
-                rid = self._next_rid
+                rid = sp["rid"] = self._next_rid
                 self._next_rid += 1
                 req = _Request(rid=rid, problem=problem, solver=solver,
                                generator=state, item=item, sig=sig,
@@ -357,10 +364,9 @@ class GWServer:
             if not rids:
                 return
             n_lanes = next_pow2(len(rids))
-            with span("serve.batch", lanes=n_lanes, real=len(rids)):
-                items = [self._requests[rid].item for rid in rids]
-                p0, s0, g0 = items[0]
-                items += [(p0, disarm_fault(s0), g0)] * (n_lanes - len(rids))
+            items = [self._requests[rid].item for rid in rids]
+            p0, s0, g0 = items[0]
+            items += [(p0, disarm_fault(s0), g0)] * (n_lanes - len(rids))
             batch = _Batch(items=items, rids=rids, n_lanes=n_lanes,
                            source=source)
             self.metrics.record_batch(len(rids), n_lanes)
@@ -399,7 +405,7 @@ class GWServer:
             batch, lane = req.batch, req.lane
         # wait outside the lock: the flusher and other submitters keep
         # running while the worker computes
-        with span("serve.block"):
+        with span("serve.block", rid=rid):
             batch.done.wait()
         if batch.error is not None:
             raise RuntimeError(

@@ -16,8 +16,12 @@ places. A rescued dense_gw solve's err, delta and objective get 1e-3
 (see test_trace_of_a_rescued_solve_matches_the_reference). Spans are compared by name, parent and
 depth; ``report()`` by its keys.
 """
+import collections
 import dataclasses
 import json
+import os
+import sys
+import threading
 import urllib.error
 import urllib.request
 
@@ -338,6 +342,33 @@ def _span_shape(records):
     return [(r["name"], r["parent"], r["depth"]) for r in records]
 
 
+# the reference's spans: the stages of solve(); the port's solver.* spans
+# inside a dispatch have no counterpart there
+LIFECYCLE = ("solve", "solve.select", "solve.validate", "solve.dispatch",
+             "solve.fallback")
+SPAR_SPANS = {"solver.sample", "solver.cost_build", "solver.cost",
+              "solver.sinkhorn", "solver.check", "solver.host_read",
+              "solver.value"}
+
+
+def _lifecycle(records):
+    return [r for r in records if r["name"] in LIFECYCLE]
+
+
+def _solver_spans_under_a_dispatch(records):
+    """Names of the solver.* spans, each asserted to lie in a dispatch."""
+    by_id = {r["id"]: r for r in records}
+    names = set()
+    for r in records:
+        if not r["name"].startswith("solver."):
+            continue
+        up = r
+        while up["name"] not in ("solve.dispatch", "serve.dispatch"):
+            up = by_id[up["parent_id"]]
+        names.add(r["name"])
+    return names
+
+
 def test_solve_spans_and_counters_match_the_reference():
     """A persistent NaN on spar_gw (l1, so the ladder skips lowrank_gw)
     under on_failure="fallback": the same lifecycle spans and the same
@@ -355,10 +386,12 @@ def test_solve_spans_and_counters_match_the_reference():
                            generator=torch.Generator().manual_seed(0),
                            device="cpu", on_failure="fallback")
     assert po.status.is_healthy and jo.status.is_healthy
-    jspans, pspans = jobs.spans(), obs.spans()
-    assert _span_shape(pspans) == _span_shape(jspans)
+    jspans, records = jobs.spans(), obs.spans()
+    pspans = _lifecycle(records)
+    assert _span_shape(pspans) == _span_shape(_lifecycle(jspans))
     assert [r["name"] for r in pspans] == [
         "solve", "solve.dispatch", "solve.fallback", "solve.dispatch"]
+    assert _solver_spans_under_a_dispatch(records) >= SPAR_SPANS
     fb = [r for r in pspans if r["name"] == "solve.fallback"][0]
     jfb = [r for r in jspans if r["name"] == "solve.fallback"][0]
     assert fb["recovered"] and fb["recovered_by"] == jfb["recovered_by"]
@@ -389,10 +422,15 @@ def test_select_and_validate_spans_match_the_reference():
     obs.clear_spans()
     repro.solve(jp, on_failure="raise")
     repro_torch.solve(pp, device="cpu", on_failure="raise")
-    assert _span_shape(obs.spans()) == _span_shape(jobs.spans())
-    assert [r["name"] for r in obs.spans()] == [
+    records = obs.spans()
+    pspans = _lifecycle(records)
+    assert _span_shape(pspans) == _span_shape(_lifecycle(jobs.spans()))
+    assert [r["name"] for r in pspans] == [
         "solve", "solve.select", "solve.validate", "solve.dispatch"]
-    assert obs.spans()[0]["solver"] == "dense_gw"
+    assert pspans[0]["solver"] == "dense_gw"
+    # dense_gw shares the health loop: its checks and reads are spanned
+    assert _solver_spans_under_a_dispatch(records) == {
+        "solver.check", "solver.host_read"}
 
 
 def test_span_nesting_and_breakdown():
@@ -407,6 +445,178 @@ def test_span_nesting_and_breakdown():
     agg = obs.span_breakdown(recs)
     assert agg["outer"]["count"] == 1
     assert agg["outer"]["total_s"] >= agg["inner"]["total_s"] >= 0.0
+
+
+def test_span_records_carry_ids_and_sub_rollups_on_two_threads():
+    """Each record has a unique ``id`` and its parent's ``parent_id``; a
+    closing span adds itself to every open span of its own thread only,
+    so ``outer`` sums its thread's 3 ``mid`` and 6 ``leaf`` spans."""
+    obs.clear_spans()
+    meet = threading.Barrier(2)
+
+    def work(tag):
+        with obs.span("outer", tag=tag):
+            for _ in range(3):
+                with obs.span("mid"):
+                    meet.wait()         # both threads hold open spans
+                    for _ in range(2):
+                        with obs.span("leaf"):
+                            pass
+    threads = [threading.Thread(target=work, args=(t,), name=f"w{t}")
+               for t in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    recs = obs.spans()
+    by_id = {r["id"]: r for r in recs}
+    assert len(by_id) == len(recs) == 2 * (1 + 3 + 6)
+    for r in recs:
+        if r["parent_id"] is None:
+            assert r["name"] == "outer" and r["parent"] is None
+        else:
+            up = by_id[r["parent_id"]]
+            assert (up["name"], up["thread"], up["depth"] + 1) == (
+                r["parent"], r["thread"], r["depth"])
+    for outer in (r for r in recs if r["name"] == "outer"):
+        mine = [r for r in recs if r["thread"] == outer["thread"]]
+        assert set(outer["sub"]) == {"mid", "leaf"}
+        for name, count in (("mid", 3), ("leaf", 6)):
+            got = outer["sub"][name]
+            assert got[0] == count
+            assert got[1] == pytest.approx(sum(
+                r["duration_s"] for r in mine if r["name"] == name))
+    for mid in (r for r in recs if r["name"] == "mid"):
+        kids = [r for r in recs if r["parent_id"] == mid["id"]]
+        assert mid["sub"] == {"leaf": [2, pytest.approx(
+            sum(r["duration_s"] for r in kids))]}
+    assert all(r["sub"] == {} for r in recs if r["name"] == "leaf")
+    # a snapshot is a copy: changing it leaves the ring as it was
+    recs[0]["sub"].clear()
+    assert obs.spans()[0]["sub"]
+
+
+def test_span_ids_and_roll_ups_hold_under_many_threads():
+    """More threads than cores, switching every microsecond: no id is
+    given twice and no roll-up loses a count."""
+    workers, rounds = (os.cpu_count() or 1) + 4, 200
+    obs.clear_spans()
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+
+    def work():
+        with obs.span("stress.outer"):
+            for _ in range(rounds):
+                with obs.span("stress.leaf"):
+                    pass
+    try:
+        threads = [threading.Thread(target=work) for _ in range(workers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    recs = obs.spans()
+    assert len(recs) == workers * (rounds + 1)
+    assert len({r["id"] for r in recs}) == len(recs)
+    outers = [r for r in recs if r["name"] == "stress.outer"]
+    assert [r["sub"]["stress.leaf"][0] for r in outers] == [rounds] * workers
+
+
+def _names_and_sites(records):
+    return collections.Counter((r["name"], r.get("site")) for r in records)
+
+
+def _check_solver_spans(records, dispatch, k, reads):
+    """``k`` outer steps' spans under ``dispatch``, once each of the
+    solve's set-up and value, and the dispatch's roll-up equal to them."""
+    mine = [r for r in records if r["name"].startswith("solver.")]
+    by_id = {r["id"]: r for r in records}
+    for r in mine:
+        up = r
+        while up["id"] != dispatch["id"]:
+            up = by_id[up["parent_id"]]
+    got = _names_and_sites(mine)
+    for name in ("solver.cost", "solver.sinkhorn", "solver.check"):
+        assert got[(name, None)] == k, name
+    assert got[("solver.host_read", "health")] == k
+    for name in ("solver.sample", "solver.cost_build", "solver.value"):
+        assert got[(name, None)] == 1, name
+    for site, n in reads.items():
+        assert got[("solver.host_read", site)] == n, site
+    assert sum(n for (name, _), n in got.items()
+               if name == "solver.host_read") == k + sum(reads.values())
+    assert all(r["parent"] == "solver.check" for r in mine
+               if r.get("site") == "health")
+    for name in {n for n, _ in got}:
+        count, seconds = dispatch["sub"][name]
+        assert count == sum(n for (m, _), n in got.items() if m == name)
+        assert seconds == pytest.approx(sum(
+            r["duration_s"] for r in mine if r["name"] == name))
+    (build,) = [r for r in mine if r["name"] == "solver.cost_build"]
+    assert build["route"] == "plain"        # no kernel runs on the CPU
+
+
+@pytest.mark.parametrize("k", [3, 7])
+def test_spar_solve_spans_under_the_dispatch(k):
+    """outer_iters=k gives k cost, Sinkhorn, check and health-read spans
+    under ``solve.dispatch``; the answer is the one the reference
+    comparison holds (the reference's support injected), and annotating
+    the spans for the profiler changes no bit of it."""
+    js = repro.SparGWSolver(s=8 * N, outer_iters=k)
+    obs.clear_spans()
+    jo, po = _solve_both("spar_gw", js)
+    records = obs.spans()
+    (dispatch,) = [r for r in records if r["name"] == "solve.dispatch"]
+    _check_solver_spans(records, dispatch, k, {"last_err": 1})
+    np.testing.assert_allclose(float(po.value), float(jo.value),
+                               rtol=VALUE_RTOL)
+    obs.configure(profiler_annotations=True)
+    try:
+        _, again = _solve_both("spar_gw", js)
+    finally:
+        obs.configure(None)
+    for x, y in ((po.value, again.value), (po.coupling.vals,
+                                           again.coupling.vals),
+                 (po.errors, again.errors)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("k", [2, 5])
+def test_server_flush_spans_carry_request_ids_and_the_queue_wait(k):
+    """A flush of three spar requests: ``serve.dispatch`` carries their
+    ids in lane order and the time it waited for the worker, the solver's
+    spans lie under it, each lane is its solo solve bit for bit, and the
+    server keeps no ``serve.batch`` span."""
+    from repro_torch.serve import GWServer, ServeConfig
+    sv = repro_torch.SparGWSolver(s=8 * 16, outer_iters=k)
+    probs = [interop.to_problem(*_data(16, seed)) for seed in range(3)]
+    obs.clear_spans()
+    srv = GWServer(ServeConfig(max_batch=4, max_wait_s=60.0, device="cpu",
+                               on_failure="none"))
+    try:
+        rids = [srv.submit(p, sv, generator=torch.Generator().manual_seed(i))
+                for i, p in enumerate(probs)]
+        res = srv.results(rids)
+    finally:
+        srv.close()
+    records = obs.spans()
+    (dispatch,) = [r for r in records if r["name"] == "serve.dispatch"]
+    assert dispatch["rids"] == rids and dispatch["lanes"] == 4
+    assert dispatch["queued_s"] >= 0.0
+    assert dispatch["thread"] == "gwserver-worker"
+    _check_solver_spans(records, dispatch, k,
+                        {"last_err": 1, "values": 1})
+    for name in ("serve.submit", "serve.block"):
+        assert sorted(r["rid"] for r in records
+                      if r["name"] == name) == rids
+    assert "serve.batch" not in {r["name"] for r in records}
+    for i, (r, p) in enumerate(zip(res, probs)):
+        solo = sv.run(p, generator=torch.Generator().manual_seed(i))
+        assert torch.equal(r.output.value, solo.value)
+        assert torch.equal(r.output.coupling.vals, solo.coupling.vals)
 
 
 def test_span_profiler_annotation_pass_through():
