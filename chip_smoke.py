@@ -27,8 +27,11 @@ Phases; any failure raises and exits non-zero with no result line:
    on an n = 2048 Moon pair (spar_gw, s = 16n = 32768, cost_impl "auto"
    = the materialized matvec kernel), then the same support with the
    gather-fused kernel forced; both kernels must launch, both values be
-   finite and healthy and agree; then a small solve on the card against
-   the plain CPU path on the same support;
+   finite and healthy and agree; each solve's Sinkhorn must launch K7
+   2 · 50 · 20 times (phases 4b-4h count K7 too: none on the unbalanced
+   path and the grid shim, some on the quantized and ``gw_loss`` paths,
+   2 · 50 · 20 a flush and a spar shim); then a small solve on the card
+   against the plain CPU path on the same support;
 4b. drive the unbalanced spar path (Alg. 3): the same Moon pair with the
    second marginal times 1.5, λ = 1, ``SparGWSolver.default_config(2048)``
    once under cost_impl "auto" (the matvec kernel must launch 21 times)
@@ -199,7 +202,9 @@ train. drive the training path: (a) the loss gradient of
    processes on the host's CPU started before the train phase and run
    beside it (``mesh_path``);
 8. time every kernel at its path's shapes against its plain version,
-   its bound and, where one exists, one library call (K5 also at
+   its bound and, where one exists, one library call (K7, the sparse
+   Sinkhorn half-step, at both benchmark cells' shapes, also a 50-iteration
+   loop of each; K5 also at
    llama3-8b's attention shape, and in its row's ``arch_shapes`` at
    llama4-scout's (40 / 8 heads, hd 128) and musicgen-medium's (24 / 24,
    hd 64); K1's lane launch at (8, 8192) also
@@ -341,6 +346,12 @@ SMALL_VALUE_RTOL = 1e-4
 # = 2.4e-5 at 181⁴ (S = 11 on 132 SMs); 2e-4 also covers the plain
 # version's matvec order
 GW_COST_RTOL = 2e-4
+# phase 8, K7 (the sparse log-domain Sinkhorn half-step) at the two
+# benchmark cells' shapes: (lanes, n, s a lane), the lib cell's one support
+# of s = 131 072 over n = 8192 and the served cell's flush of 8 lanes of
+# s = 32 768 over n = 2048 (one segment space of 8·2048 rows)
+K7_SHAPES = ((1, 8192, 131072), (8, 2048, 32768))
+K7_ITERS = 50
 # phase 8's block sweeps at the main path's shapes: (family, candidates,
 # reps of the host clock a candidate)
 K1_TUNE = ("spar_cost", (64, 128, 256, 512, 1024), 20)
@@ -545,6 +556,137 @@ def bound(bytes_moved: float, ops: float, peak: float = FP32_FLOPS) -> tuple:
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def k7_bytes(s: int, num: int, other: int) -> int:
+    """The bytes a half-step needs from HBM, each counted once: lv and the
+    other index (8 an entry), the segment offsets, marginal and output (12
+    a segment) and the gathered potential (4 an entry of it). The second
+    pass over lv and idx and the potential's repeated reads come from
+    L1/L2."""
+    return 8 * s + 12 * num + 4 * other
+
+
+def k7_count(k7) -> int:
+    """K7's launches since its last reset."""
+    return k7.LAUNCHES["sparse_sinkhorn_half"]
+
+
+def check_k7_launches(name, out, launched: int, solver):
+    """A spar solve launches K7 twice an iteration of every outer step:
+    exactly 2 · inner_iters · outer_iters without an ε-rescue (which
+    re-runs steps), more with one."""
+    want = 2 * solver.inner_iters * solver.outer_iters
+    ok = launched == want if out.status.n_rescues == 0 else launched > want
+    if not ok:
+        raise AssertionError(f"{name}: K7 launched {launched} times, "
+                             f"expected {want} ({out.status.n_rescues} "
+                             f"rescues)")
+
+
+def k7_phase(torch, dev, launches=None) -> list:
+    """K7's half-step at ``K7_SHAPES`` on potentials 10 iterations in
+    (uniform marginals, a uniform support, log-kernel -C/ε + log w with C
+    in [0, 2], ε = 1e-2): held to the plain half-step (core/sinkhorn.py's
+    body) within one half-step's summation-order bound, timed on CUDA
+    events in turns (kernel, plain, plain, kernel) beside its byte bound,
+    then each one's device time alone under torch.profiler, then 50
+    iterations of each body on the host clock (the time a solve's
+    Sinkhorn loop takes), in turns too. One row a shape; given phase 4's
+    K7 counts, the lib shape's row carries them as ``launches``, the
+    served shape's the serve flushes' count."""
+    from repro_torch.core.utils import log_floor
+    from repro_torch.kernels.sparse_sinkhorn import sparse_sinkhorn as k7
+    from repro_torch.kernels.sparse_sinkhorn.ops import logdomain_body
+    sk = importlib.import_module("repro_torch.core.sinkhorn")
+    u = 2.0 ** -24
+    out = []
+    for lanes, n, s in K7_SHAPES:
+        gen = torch.Generator(dev).manual_seed(29)
+        num = lanes * n
+        rows = sk._lane_flat(torch.randint(0, n, (lanes, s), generator=gen,
+                                           device=dev), n)
+        cols = sk._lane_flat(torch.randint(0, n, (lanes, s), generator=gen,
+                                           device=dev), n)
+        lv = (torch.rand(lanes * s, generator=gen, device=dev) * -200.0
+              + math.log(n * n / s))
+        la = log_floor(torch.full((num,), 1.0 / n, device=dev))
+
+        def plain_half(pot, keys, idx):
+            return sk._finite(la - sk.segment_logsumexp(lv + pot[idx], keys,
+                                                        num))
+
+        def plain_body(carry):
+            f = plain_half(carry[1], rows, cols)
+            return (f, plain_half(f, cols, rows))
+
+        body = logdomain_body(la, la, rows, cols, lv, num, num)
+        zero = (torch.zeros(num, device=dev), torch.zeros(num, device=dev))
+        carry = zero
+        for _ in range(10):
+            carry = body(carry)
+        g = carry[1]
+        layout, perm = k7.segment_layout(rows, cols, num, num)
+        lv_r = lv[perm]
+        k7.reset_launch_counts()
+        got = k7.half_step(layout, lv_r, g, la)
+        want = plain_half(g, rows, cols)
+        torch.cuda.synchronize()
+        if k7.LAUNCHES["sparse_sinkhorn_half"] != 1:
+            raise AssertionError("K7 did not launch once for a half-step")
+        k = int(torch.diff(layout.off).max())
+        tol = 2 * (k - 1) * u + 2 * u * float(want.abs().max())
+        err = float((got - want).abs().max())
+        if not err <= tol:
+            raise AssertionError(f"K7 at {lanes} x (n={n}, s={s}): kernel "
+                                 f"disagrees with plain: {err:.3g} > "
+                                 f"{tol:.3g}")
+        launch = {"kernel": lambda: k7.half_step(layout, lv_r, g, la),
+                  "plain": lambda: plain_half(g, rows, cols)}
+        turns = {"kernel": [], "plain": []}
+        for name in ("kernel", "plain", "plain", "kernel"):
+            turns[name].append(time_ms(torch, launch[name], 200))
+
+        def loop_s(step):
+            c = zero
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(K7_ITERS):
+                c = step(c)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        # device time alone (the events above time back-to-back launches,
+        # which the host may pace): the kernel's a launch, the plain
+        # half-step's summed over its kernels
+        prof_k = profile_solve(torch, lambda: [launch["kernel"]()
+                                               for _ in range(50)], top=1)
+        prof_p = profile_solve(torch, lambda: [launch["plain"]()
+                                               for _ in range(20)])
+        device_us = {"kernel": 1e3 * prof_k["top"][0]["ms"]
+                     / prof_k["top"][0]["calls"],
+                     "plain": 1e6 * prof_p["device_busy_s"] / 20,
+                     "plain_kernels": prof_p["kernel_launches"] / 20}
+        loops = {"kernel": [], "plain": []}
+        for name, step in (("kernel", body), ("plain", plain_body),
+                           ("plain", plain_body), ("kernel", body)):
+            loops[name].append(loop_s(step))
+        bound_ms, bound_by = bound(k7_bytes(lanes * s, num, num), 0)
+        out.append({
+            "name": "sparse_sinkhorn_half", "route": "cuda",
+            "source": "src/repro_torch/csrc/sparse_sinkhorn.cu",
+            "replaces": None,
+            "launches": (launches if launches is None or lanes == 1
+                         else launches["serve_spar_lanes"]),
+            "shape": f"{lanes} x (n={n}, s={s}), group {layout.group}",
+            "max_abs_err": err, "err_bound": tol, "longest_segment": k,
+            "ms": sum(turns["kernel"]) / 2,
+            "plain_ms": sum(turns["plain"]) / 2, "turns_ms": turns,
+            "device_us": device_us,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            f"loop_{K7_ITERS}_iters_s": loops})
+        print(json.dumps({"k7": out[-1]}))
+    return out
 
 
 def autotune_row(torch, dispatch, tune, bench, flops, nbytes,
@@ -1703,6 +1845,7 @@ def main(parent: Path | None = None) -> int:
     from repro_torch.kernels.sinkhorn import ops as sinkhorn_ops
     from repro_torch.kernels.sinkhorn import sinkhorn
     from repro_torch.kernels.spar_cost import ops, ref, spar_cost
+    from repro_torch.kernels.sparse_sinkhorn import sparse_sinkhorn as k7
     from repro_torch.kernels.ssd import ssd
     from repro_torch.kernels.ssd.ref import ssd_intra_error_scale
     from repro_torch.lowrank import solver as lowrank_solver
@@ -1742,7 +1885,8 @@ def main(parent: Path | None = None) -> int:
     stamps.append(("2", time.perf_counter()))
     t0 = time.perf_counter()
     reports = cuda_lib.build(["spar_matvec", "spar_cost_fused", "gw_cost",
-                              "sinkhorn", "flash_attention", "ssd_intra"])
+                              "sinkhorn", "flash_attention", "ssd_intra",
+                              "sparse_sinkhorn"])
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(reports) or 'already built'})")
     for name, rep in reports.items():
@@ -1903,18 +2047,23 @@ def main(parent: Path | None = None) -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     spar_cost.reset_launch_counts()
+    k7.reset_launch_counts()
     t0 = time.perf_counter()
     out_auto = repro_torch.solve(problem,
                                  generator=torch.Generator(dev).manual_seed(0))
     v_auto = float(out_auto.value)
     torch.cuda.synchronize()
     wall_auto = time.perf_counter() - t0
+    # K7's launches a solve: 2 a Sinkhorn iteration of every outer step
+    k7_launches = {"main_path_auto": k7_count(k7)}
+    k7.reset_launch_counts()
     support = (out_auto.coupling.rows, out_auto.coupling.cols)
     t0 = time.perf_counter()
     out_fused = repro_torch.solve(problem, forced, support=support)
     v_fused = float(out_fused.value)
     torch.cuda.synchronize()
     wall_fused = time.perf_counter() - t0
+    k7_launches["main_path_pallas"] = k7_count(k7)
     # (value, wall) of both solves, for phase 8's re-runs under the tuned
     # blocks (phase 4b reuses the names v_auto and v_fused)
     spar_main = {"auto": (v_auto, wall_auto), "pallas": (v_fused, wall_fused)}
@@ -1929,13 +2078,17 @@ def main(parent: Path | None = None) -> int:
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"main path never launched {name}")
+    for name, out in (("auto", out_auto), ("pallas", out_fused)):
+        check_k7_launches(f"main path ({name})", out,
+                          k7_launches[f"main_path_{name}"], auto)
     print(json.dumps({"main_path": {
         "n": N_MAIN, "s": s_main, "loss": problem.loss,
         "value_auto": v_auto, "value_pallas": v_fused,
         "status": out_auto.status.describe(), "n_iters": out_auto.n_iters,
         "last_err": out_auto.status.last_err,
         "wall_s_auto": wall_auto, "wall_s_pallas": wall_fused,
-        "max_memory_allocated_gib": peak_gib, "launches": launches}}))
+        "max_memory_allocated_gib": peak_gib, "launches": launches,
+        "k7_launches": k7_launches}}))
 
     # a small solve on the card against the plain CPU path, same support
     sx, sa, sy, sb = moon(N_SMALL, seed=1)
@@ -1970,6 +2123,7 @@ def main(parent: Path | None = None) -> int:
         torch.cuda.reset_peak_memory_stats()
         base_bytes = torch.cuda.memory_allocated()
         spar_cost.reset_launch_counts()
+        k7.reset_launch_counts()
         t0 = time.perf_counter()
         out = repro_torch.solve(ugw_problem, solver, support=ugw_support,
                                 generator=torch.Generator(dev).manual_seed(0))
@@ -1978,6 +2132,10 @@ def main(parent: Path | None = None) -> int:
         wall = time.perf_counter() - t0
         counts = dict(spar_cost.LAUNCHES)
         check_solve(f"unbalanced path ({impl})", out, (ugw_solver.s,))
+        # the unbalanced log-domain loop stays on plain ops
+        k7_launches[f"unbalanced_{impl}"] = k7_count(k7)
+        if k7_launches[f"unbalanced_{impl}"] != 0:
+            raise AssertionError(f"unbalanced path ({impl}): K7 launched")
         if counts[kernel] != ugw_solver.outer_iters + 1 or sum(
                 counts.values()) != counts[kernel]:
             raise AssertionError(f"unbalanced path ({impl}): launches "
@@ -2192,10 +2350,14 @@ def main(parent: Path | None = None) -> int:
             ("polished", polished, QuantizedDraws(*starts)),
             ("spar_base", spar_based, QuantizedDraws(*starts, base_support))):
         spar_cost.reset_launch_counts()
+        k7.reset_launch_counts()
         on_card = repro_torch.solve(qsmall, solver, draws=draws)
         vc = float(on_card.value)
         torch.cuda.synchronize()
         quant_launches[name] = dict(spar_cost.LAUNCHES)
+        k7_launches[f"quantized_{name}"] = k7_count(k7)
+        if k7_launches[f"quantized_{name}"] <= 0:
+            raise AssertionError(f"quantized {name}: K7 never launched")
         on_cpu = repro_torch.solve(qsmall, solver, device="cpu",
                                    draws=QuantizedDraws(
                                        *(x.cpu() for x in starts),
@@ -2311,11 +2473,16 @@ def main(parent: Path | None = None) -> int:
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         spar_cost.reset_launch_counts()
+        k7.reset_launch_counts()
         t0 = time.perf_counter()
         value = diff.gw_loss(x, y, wa, wb, support=d_support)
         v = float(value.detach())
         forward_s = time.perf_counter() - t0
         fwd_launches = dict(spar_cost.LAUNCHES)
+        k7_key = "diff_" + label.replace(" ", "_")
+        k7_launches[k7_key] = k7_count(k7)
+        if k7_launches[k7_key] <= 0:
+            raise AssertionError(f"gw_loss ({label}): K7 never launched")
         t0 = time.perf_counter()
         grads = torch.autograd.grad(value, [x, y])
         torch.cuda.synchronize()
@@ -2643,6 +2810,7 @@ def main(parent: Path | None = None) -> int:
     s_solver = SparGWSolver(s=SERVE_SPAR_S)
     seeds = range(len(spar_reqs))
     spar_cost.reset_launch_counts()
+    k7.reset_launch_counts()
     srv = GWServer(ServeConfig(max_batch=SERVE_LANES, max_wait_s=60.0))
     try:
         torch.cuda.synchronize()
@@ -2655,12 +2823,20 @@ def main(parent: Path | None = None) -> int:
     finally:
         srv.close()
     spar_launches = dict(spar_cost.LAUNCHES)
+    # K7: one launch a half-step for all of a flush's lanes
+    k7_launches["serve_spar_lanes"] = k7_count(k7)
     n_flush = len(spar_reqs) // SERVE_LANES
     if spar_stats["n_batches"] != n_flush or spar_launches != {
             "spar_matvec": n_flush * (s_solver.outer_iters + 1),
             "spar_cost_fused": 0}:
         raise AssertionError(f"spar lanes: {spar_stats['n_batches']} "
                              f"flushes, launches {spar_launches}")
+    if any(r.output.status.n_rescues for r in spar_served) or \
+            k7_launches["serve_spar_lanes"] != n_flush * 2 * \
+            s_solver.inner_iters * s_solver.outer_iters:
+        raise AssertionError(f"spar lanes: K7 launched "
+                             f"{k7_launches['serve_spar_lanes']} times in "
+                             f"{n_flush} flushes")
     # each lane against its solo solve from the same generator state; the
     # solo solves of the first flush's lanes are the 8 it replaces
     padded_spar = [pad_problem(p, SERVE_SPAR_N, SERVE_SPAR_N).to(dev)
@@ -2705,7 +2881,8 @@ def main(parent: Path | None = None) -> int:
         "requests": len(spar_reqs), "n": SERVE_SPAR_SIZES,
         "bucket": [SERVE_SPAR_N, SERVE_SPAR_N], "s": SERVE_SPAR_S,
         "lanes": SERVE_LANES, "flushes": spar_stats["n_batches"],
-        "launches": spar_launches, "wall_s_16": spar_wall,
+        "launches": spar_launches,
+        "k7_launches": k7_launches["serve_spar_lanes"], "wall_s_16": spar_wall,
         "max_rel_err_vs_solo": worst, "flush_wall_s": flush_wall,
         "solo_8_wall_s": sum(solo_walls[:SERVE_LANES]),
         "solo_wall_s": solo_walls,
@@ -2832,12 +3009,22 @@ def main(parent: Path | None = None) -> int:
         for name, (shim, direct, kmod, kname) in cases.items():
             torch.cuda.synchronize()
             kmod.reset_launch_counts()
+            k7.reset_launch_counts()
             t0 = time.perf_counter()
             value, coupling = shim(torch.Generator(dev).manual_seed(0))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launched = dict(kmod.LAUNCHES)
+            k7_launches[f"legacy_{name}"] = k7_count(k7)
             out = direct(torch.Generator(dev).manual_seed(0))
+            # the spar shims' Sinkhorn runs on K7, the grid's dense loop not
+            if kname == "gw_cost":
+                if k7_launches[f"legacy_{name}"] != 0:
+                    raise AssertionError(f"legacy {name}: K7 launched")
+            else:
+                check_k7_launches(f"legacy {name}", out,
+                                  k7_launches[f"legacy_{name}"],
+                                  SparGWSolver(s=16 * N_MAIN))
             c = out.coupling
             want = (c.rows, c.cols, c.block if hasattr(c, "block") else c.vals)
             bitwise = same_bits(value, out.value) and all(
@@ -3551,6 +3738,10 @@ def main(parent: Path | None = None) -> int:
                      "shape": f"n={N_MAIN} s={s_main} {problem.loss}, "
                               f"support in sampled order"}]
     del Cx, Cy
+    torch.cuda.empty_cache()
+
+    # K7, the sparse Sinkhorn half-step, at the benchmark cells' shapes
+    kernels.extend(k7_phase(torch, dev, k7_launches))
     torch.cuda.empty_cache()
 
     # gw_cost at 181⁴ on the grid main path's blocks and final coupling

@@ -28,14 +28,21 @@ tolerance.
 ``differentiable`` is kept in the dense signatures for parity: torch's
 plain loop is already differentiable, so it only keeps the reference's
 refusal of ``tol > 0`` with it.
+
+On CUDA tensors the balanced log-domain sparse loops
+(:func:`sparse_sinkhorn_logdomain` and its lanes) run each half-step as
+one launch of K7 (``kernels/sparse_sinkhorn``) in a
+``solver.sinkhorn_kernel`` span; on CPU tensors they run the plain body
+below, which is K7's plain version. The other loops are plain on both.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.utils import NEG_INF as _NEG_INF
 from repro_torch.core.utils import flush_subnormal, log_floor, safe_div
-
-_NEG_INF = -1e30   # proxy for -inf that stays NaN-free under arithmetic
+from repro_torch.kernels.sparse_sinkhorn.ops import logdomain_body
+from repro_torch.obs.span import span
 
 
 def _finite(x):
@@ -289,7 +296,13 @@ def sparse_sinkhorn_logdomain(a, b, rows, cols, logvals, m: int, n: int,
         g = _finite(lb - segment_logsumexp(logvals + f[rows], cols, n))
         return (f, g)
 
-    f, g = _scaling_loop(body, (f0, g0), iters, tol)
+    if logvals.is_cuda:
+        with span("solver.sinkhorn_kernel"):
+            f, g = _scaling_loop(
+                logdomain_body(la, lb, rows, cols, logvals, m, n), (f0, g0),
+                iters, tol)
+    else:
+        f, g = _scaling_loop(body, (f0, g0), iters, tol)
     return flush_subnormal(torch.exp(logvals + f[rows] + g[cols]))
 
 
@@ -384,6 +397,17 @@ def sparse_sinkhorn_logdomain_lanes(a, b, rows, cols, logvals, iters: int,
                     .view(Bn, n))
         return (f, g)
 
-    f, g = _scaling_loop_lanes(body, (f0, g0), iters, tol)
+    if lv.is_cuda:
+        with span("solver.sinkhorn_kernel"):
+            flat = logdomain_body(la.reshape(-1), lb.reshape(-1), r, c, lv,
+                                  Bn * m, Bn * n)
+
+            def lanes(carry):
+                f, g = flat((carry[0].reshape(-1), carry[1].reshape(-1)))
+                return (f.view(Bn, m), g.view(Bn, n))
+
+            f, g = _scaling_loop_lanes(lanes, (f0, g0), iters, tol)
+    else:
+        f, g = _scaling_loop_lanes(body, (f0, g0), iters, tol)
     return flush_subnormal(torch.exp(lv + f.reshape(-1)[r]
                                      + g.reshape(-1)[c])).view(Bn, s)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 FLT_MIN = torch.finfo(torch.float32).tiny     # smallest normal float32
+NEG_INF = -1e30   # proxy for -inf that stays NaN-free under arithmetic
 
 
 def scalar(x) -> float:
