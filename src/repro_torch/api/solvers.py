@@ -12,11 +12,13 @@ is the envelope gradient. Each passes the reference's per-iteration
 objective as ``obj_fn``, which the loop evaluates for ``trace=True``
 only.
 
-The balanced ``spar_gw`` path records the spans ``solver.sample``,
+Both ``spar_gw`` paths record the spans ``solver.sample``,
 ``solver.cost_build`` (attribute ``route``: K1, K2 or plain), one
 ``solver.cost`` and one ``solver.sinkhorn`` an outer step, and
-``solver.value`` (``repro_torch.obs``); the loop adds ``solver.check``
-and ``solver.host_read`` (``health/loop.py``).
+``solver.value`` (``repro_torch.obs``); the unbalanced one (Alg. 3) opens
+``solver.ugw_init`` first, around its dense rank-one init and log-kernel.
+The loop adds ``solver.check`` and ``solver.host_read``
+(``health/loop.py``).
 """
 from __future__ import annotations
 
@@ -287,37 +289,46 @@ class SparGWSolver:
         scale = torch.sqrt(torch.sum(a) * torch.sum(b))
 
         # steps 2-3: dense rank-one init and its (log-)kernel, once
-        Td = flush_subnormal(flush_subnormal(a[:, None] * b[None, :]) / scale)
-        m0 = torch.sum(Td)
-        C0 = dense_cost(Cx, Cy, Td, loss) + _marginal_penalty(
-            Td.sum(1), Td.sum(0), a, b, lam)
-        logK0 = -C0 / (eps * m0) + log_floor(Td)
+        with span("solver.ugw_init"):
+            Td = flush_subnormal(flush_subnormal(a[:, None] * b[None, :])
+                                 / scale)
+            m0 = torch.sum(Td)
+            C0 = dense_cost(Cx, Cy, Td, loss) + _marginal_penalty(
+                Td.sum(1), Td.sum(0), a, b, lam)
+            logK0 = -C0 / (eps * m0) + log_floor(Td)
 
         # steps 4-5: sampling probability (eq. 9) and index set
-        P = sampling.unbalanced_probs(a, b, logK0, lam, eps, self.shrink)
-        if support is None:
-            rows, cols = sampling.sample_pairs_2d(generator, P, self.s)
-        else:
-            rows, cols = _injected_support(support, ((self.s,), (self.s,)),
-                                           m, n, a.device)
-        # log(s·max(p, 1e-38)) as XLA evaluates it: the floor flushes to 0
-        logw = -torch.log(self.s * flush_subnormal(P[rows, cols]))
-        T0 = flush_subnormal(flush_subnormal(a[rows] * b[cols]) / scale)
-        cost_fn = make_spar_cost_fn(Cx, Cy, rows, cols, loss,
-                                    impl=self.cost_impl, chunk=self.cost_chunk)
+        with span("solver.sample"):
+            P = sampling.unbalanced_probs(a, b, logK0, lam, eps, self.shrink)
+            if support is None:
+                rows, cols = sampling.sample_pairs_2d(generator, P, self.s)
+            else:
+                rows, cols = _injected_support(
+                    support, ((self.s,), (self.s,)), m, n, a.device)
+            # log(s·max(p, 1e-38)) as XLA evaluates it: the floor flushes to 0
+            logw = -torch.log(self.s * flush_subnormal(P[rows, cols]))
+            T0 = flush_subnormal(flush_subnormal(a[rows] * b[cols]) / scale)
+        with span("solver.cost_build",
+                  route=kernel_route(self.cost_impl, self.s, a.device)):
+            cost_fn = make_spar_cost_fn(Cx, Cy, rows, cols, loss,
+                                        impl=self.cost_impl,
+                                        chunk=self.cost_chunk)
 
         def step(T, rescue):
-            mT = torch.sum(T)
-            eps_bar = eps * rescue * mT     # rescue: the loop's ε escalation
-            lam_bar = lam * mT
-            mu, nu = _coo_marginals(T, rows, cols, m, n)
-            # logK = -(L@T̃ + penalty)/ε̄ + log T̃ + log w in one cost call
-            off = (-_marginal_penalty(mu, nu, a, b, lam) / eps_bar
-                   + log_floor(T) + logw)
-            logK = cost_fn((-1.0 / eps_bar) * T, off)
-            T_new = sparse_sinkhorn_unbalanced_log(
-                a, b, rows, cols, logK, lam_bar, eps_bar, m, n,
-                self.inner_iters, tol=self.inner_tol)
+            with span("solver.cost"):
+                mT = torch.sum(T)
+                # rescue: the loop's ε escalation
+                eps_bar = eps * rescue * mT
+                lam_bar = lam * mT
+                mu, nu = _coo_marginals(T, rows, cols, m, n)
+                # logK = -(L@T̃ + penalty)/ε̄ + log T̃ + log w in one cost call
+                off = (-_marginal_penalty(mu, nu, a, b, lam) / eps_bar
+                       + log_floor(T) + logw)
+                logK = cost_fn((-1.0 / eps_bar) * T, off)
+            with span("solver.sinkhorn"):
+                T_new = sparse_sinkhorn_unbalanced_log(
+                    a, b, rows, cols, logK, lam_bar, eps_bar, m, n,
+                    self.inner_iters, tol=self.inner_tol)
             return _rescaled(T_new, mT)
 
         err_fn = partial(_coo_marginal_err, rows=rows, cols=cols, a=a, b=b)
@@ -332,9 +343,10 @@ class SparGWSolver:
             **_health_kw(self))
         # Alg. 3 step 11: UGW objective on the sparse coupling, from the
         # live data (λ and the marginals carry gradients through the KLs)
-        mu, nu = _coo_marginals(T, rows, cols, m, n)
-        value = _ugw_value(torch.sum(T * cost_fn(T)), mu, nu, a, b,
-                           problem.lam)
+        with span("solver.value"):
+            mu, nu = _coo_marginals(T, rows, cols, m, n)
+            value = _ugw_value(torch.sum(T * cost_fn(T)), mu, nu, a, b,
+                               problem.lam)
         return GWOutput(value=value, coupling=SparseCoupling(rows, cols, T),
                         errors=errors, converged=converged, n_iters=n_iters,
                         status=status, trace=trace)
