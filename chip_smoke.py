@@ -28,10 +28,10 @@ Phases; any failure raises and exits non-zero with no result line:
    = the materialized matvec kernel), then the same support with the
    gather-fused kernel forced; both kernels must launch, both values be
    finite and healthy and agree; each solve's Sinkhorn must launch K7
-   2 · 50 · 20 times (phases 4b-4h count K7 too: none on the unbalanced
-   path and the grid shim, some on the quantized and ``gw_loss`` paths,
-   2 · 50 · 20 a flush and a spar shim); then a small solve on the card
-   against the plain CPU path on the same support;
+   2 · 50 · 20 times (phases 4b-4h count K7 too: 2 · 50 · 20 on the
+   unbalanced path, with ρ, none on the grid shim, some on the quantized
+   and ``gw_loss`` paths, 2 · 50 · 20 a flush and a spar shim); then a
+   small solve on the card against the plain CPU path on the same support;
 4b. drive the unbalanced spar path (Alg. 3): the same Moon pair with the
    second marginal times 1.5, λ = 1, ``SparGWSolver.default_config(2048)``
    once under cost_impl "auto" (the matvec kernel must launch 21 times)
@@ -589,12 +589,15 @@ def k7_phase(torch, dev, launches=None) -> list:
     (uniform marginals, a uniform support, log-kernel -C/ε + log w with C
     in [0, 2], ε = 1e-2): held to the plain half-step (core/sinkhorn.py's
     body) within one half-step's summation-order bound, timed on CUDA
-    events in turns (kernel, plain, plain, kernel) beside its byte bound,
-    then each one's device time alone under torch.profiler, then 50
-    iterations of each body on the host clock (the time a solve's
-    Sinkhorn loop takes), in turns too. One row a shape; given phase 4's
-    K7 counts, the lib shape's row carries them as ``launches``, the
-    served shape's the serve flushes' count."""
+    events in turns (kernel, ρ, plain, plain, ρ, kernel) beside its byte
+    bound, then each one's device time alone under torch.profiler, then
+    50 iterations of each body on the host clock (the time a solve's
+    Sinkhorn loop takes), in turns too. ρ is the unbalanced instantiation
+    (ρ = 1/1.01, the ugw cell's), held to the plain unbalanced half-step
+    within two ulps where the balanced takes one, and ρ = 1 bitwise the
+    balanced launch. One row a shape; given phase 4's K7 counts, the lib
+    shape's row carries them as ``launches``, the served shape's the serve
+    flushes' count."""
     from repro_torch.core.utils import log_floor
     from repro_torch.kernels.sparse_sinkhorn import sparse_sinkhorn as k7
     from repro_torch.kernels.sparse_sinkhorn.ops import logdomain_body
@@ -612,15 +615,19 @@ def k7_phase(torch, dev, launches=None) -> list:
               + math.log(n * n / s))
         la = log_floor(torch.full((num,), 1.0 / n, device=dev))
 
-        def plain_half(pot, keys, idx):
-            return sk._finite(la - sk.segment_logsumexp(lv + pot[idx], keys,
-                                                        num))
+        rho = torch.tensor(1.0, device=dev) / (1.0 + torch.tensor(
+            1e-2, device=dev))
+
+        def plain_half(pot, keys, idx, r=None):
+            d = la - sk.segment_logsumexp(lv + pot[idx], keys, num)
+            return sk._finite(d if r is None else r * d)
 
         def plain_body(carry):
             f = plain_half(carry[1], rows, cols)
             return (f, plain_half(f, cols, rows))
 
         body = logdomain_body(la, la, rows, cols, lv, num, num)
+        body_r = logdomain_body(la, la, rows, cols, lv, num, num, rho=rho)
         zero = (torch.zeros(num, device=dev), torch.zeros(num, device=dev))
         carry = zero
         for _ in range(10):
@@ -641,10 +648,21 @@ def k7_phase(torch, dev, launches=None) -> list:
             raise AssertionError(f"K7 at {lanes} x (n={n}, s={s}): kernel "
                                  f"disagrees with plain: {err:.3g} > "
                                  f"{tol:.3g}")
+        got_r = k7.half_step(layout, lv_r, g, la, rho=rho)
+        want_r = plain_half(g, rows, cols, rho)
+        tol_r = 2 * (k - 1) * u + 4 * u * float(want_r.abs().max())
+        err_r = float((got_r - want_r).abs().max())
+        one = torch.ones((), device=dev)
+        if not err_r <= tol_r or not torch.equal(
+                k7.half_step(layout, lv_r, g, la, rho=one), got):
+            raise AssertionError(f"K7 with rho at {lanes} x (n={n}, s={s}): "
+                                 f"{err_r:.3g} > {tol_r:.3g}, or rho = 1 "
+                                 f"is not the balanced launch")
         launch = {"kernel": lambda: k7.half_step(layout, lv_r, g, la),
+                  "rho": lambda: k7.half_step(layout, lv_r, g, la, rho=rho),
                   "plain": lambda: plain_half(g, rows, cols)}
-        turns = {"kernel": [], "plain": []}
-        for name in ("kernel", "plain", "plain", "kernel"):
+        turns = {"kernel": [], "rho": [], "plain": []}
+        for name in ("kernel", "rho", "plain", "plain", "rho", "kernel"):
             turns[name].append(time_ms(torch, launch[name], 200))
 
         def loop_s(step):
@@ -661,15 +679,20 @@ def k7_phase(torch, dev, launches=None) -> list:
         # half-step's summed over its kernels
         prof_k = profile_solve(torch, lambda: [launch["kernel"]()
                                                for _ in range(50)], top=1)
+        prof_r = profile_solve(torch, lambda: [launch["rho"]()
+                                               for _ in range(50)], top=1)
         prof_p = profile_solve(torch, lambda: [launch["plain"]()
                                                for _ in range(20)])
         device_us = {"kernel": 1e3 * prof_k["top"][0]["ms"]
                      / prof_k["top"][0]["calls"],
+                     "rho": 1e3 * prof_r["top"][0]["ms"]
+                     / prof_r["top"][0]["calls"],
                      "plain": 1e6 * prof_p["device_busy_s"] / 20,
                      "plain_kernels": prof_p["kernel_launches"] / 20}
-        loops = {"kernel": [], "plain": []}
-        for name, step in (("kernel", body), ("plain", plain_body),
-                           ("plain", plain_body), ("kernel", body)):
+        loops = {"kernel": [], "rho": [], "plain": []}
+        for name, step in (("kernel", body), ("rho", body_r),
+                           ("plain", plain_body), ("plain", plain_body),
+                           ("rho", body_r), ("kernel", body)):
             loops[name].append(loop_s(step))
         bound_ms, bound_by = bound(k7_bytes(lanes * s, num, num), 0)
         out.append({
@@ -680,7 +703,8 @@ def k7_phase(torch, dev, launches=None) -> list:
                          else launches["serve_spar_lanes"]),
             "shape": f"{lanes} x (n={n}, s={s}), group {layout.group}",
             "max_abs_err": err, "err_bound": tol, "longest_segment": k,
-            "ms": sum(turns["kernel"]) / 2,
+            "rho_max_abs_err": err_r, "rho_err_bound": tol_r,
+            "ms": sum(turns["kernel"]) / 2, "rho_ms": sum(turns["rho"]) / 2,
             "plain_ms": sum(turns["plain"]) / 2, "turns_ms": turns,
             "device_us": device_us,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
@@ -2132,10 +2156,10 @@ def main(parent: Path | None = None) -> int:
         wall = time.perf_counter() - t0
         counts = dict(spar_cost.LAUNCHES)
         check_solve(f"unbalanced path ({impl})", out, (ugw_solver.s,))
-        # the unbalanced log-domain loop stays on plain ops
+        # the unbalanced log-domain loop runs K7 with ρ, as the balanced
         k7_launches[f"unbalanced_{impl}"] = k7_count(k7)
-        if k7_launches[f"unbalanced_{impl}"] != 0:
-            raise AssertionError(f"unbalanced path ({impl}): K7 launched")
+        check_k7_launches(f"unbalanced path ({impl})", out,
+                          k7_launches[f"unbalanced_{impl}"], solver)
         if counts[kernel] != ugw_solver.outer_iters + 1 or sum(
                 counts.values()) != counts[kernel]:
             raise AssertionError(f"unbalanced path ({impl}): launches "

@@ -29,11 +29,12 @@ tolerance.
 plain loop is already differentiable, so it only keeps the reference's
 refusal of ``tol > 0`` with it.
 
-On CUDA tensors the balanced log-domain sparse loops
-(:func:`sparse_sinkhorn_logdomain` and its lanes) run each half-step as
-one launch of K7 (``kernels/sparse_sinkhorn``) in a
-``solver.sinkhorn_kernel`` span; on CPU tensors they run the plain body
-below, which is K7's plain version. The other loops are plain on both.
+On CUDA tensors the log-domain sparse loops (the balanced
+:func:`sparse_sinkhorn_logdomain` and its lanes, and the unbalanced
+:func:`sparse_sinkhorn_unbalanced_log`, whose launches apply ρ) run each
+half-step as one launch of K7 (``kernels/sparse_sinkhorn``) in a
+``solver.sinkhorn_kernel`` span; on CPU tensors they run the plain bodies
+below, which are K7's plain versions. The other loops are plain on both.
 """
 from __future__ import annotations
 
@@ -342,7 +343,16 @@ def sparse_sinkhorn_unbalanced_log(a, b, rows, cols, logvals, lam, eps,
         g = _finite(rho * (lb - segment_logsumexp(logvals + f[rows], cols, n)))
         return (f, g)
 
-    f, g = _scaling_loop(body, (f0, g0), iters, tol)
+    if logvals.is_cuda:
+        with span("solver.sinkhorn_kernel"):
+            # ρ stays on the device: λ̄ and ε̄ are 0-d tensors of the solve
+            rho_t = torch.as_tensor(rho, dtype=logvals.dtype,
+                                    device=logvals.device)
+            f, g = _scaling_loop(
+                logdomain_body(la, lb, rows, cols, logvals, m, n, rho=rho_t),
+                (f0, g0), iters, tol)
+    else:
+        f, g = _scaling_loop(body, (f0, g0), iters, tol)
     return flush_subnormal(torch.exp(logvals + f[rows] + g[cols]))
 
 

@@ -2,16 +2,29 @@
 //
 //   out_i = _finite(lmarg_i - lse_{e in segment i}(lv_e + pot[idx_e]))
 //
+// or, for the unbalanced loop (Alg. 3 step 9, exponent rho = lam/(lam+eps)),
+//
+//   out_i = _finite(rho * (lmarg_i - lse_{e in segment i}(lv_e + pot[idx_e])))
+//
 // over the segments of a COO support made contiguous: segment i holds
 // entries off[i] .. off[i+1]-1, lv and idx in that order. With the support
 // sorted by row (lv, cols, row offsets) it is the update of f from g; sorted
 // by column (lv, rows, column offsets), the update of g from f.
 //
 // Replaces no TPU kernel: the reference's sparse Sinkhorn is plain jnp
-// segment ops (src/repro/core/sinkhorn.py, sparse_sinkhorn_logdomain). On the
-// card its plain version (core/sinkhorn.py, segment_logsumexp) is ~32 small
-// kernels a half-step, so a solve's 1000 iterations were paced by the host
-// launching them. This kernel is one launch a half-step.
+// segment ops (src/repro/core/sinkhorn.py, sparse_sinkhorn_logdomain and
+// sparse_sinkhorn_unbalanced_log). On the card their plain versions
+// (core/sinkhorn.py, segment_logsumexp) are ~32 small kernels a half-step,
+// so a solve's 1000 iterations were paced by the host launching them. This
+// kernel is one launch a half-step, balanced or unbalanced.
+//
+// rho is read on the device from a float32 pointer: it is a 0-d tensor of
+// the solve (lam·m(T) over lam·m(T) + eps·m(T)), so reading it on the host
+// would cost a synchronisation a Sinkhorn call. A null rho selects the
+// balanced instantiation, whose code is the same as without the flag; the
+// rho instantiation computes v = lmarg - lse, then rho * v, then _finite,
+// the plain body's float32 operations in its order (rho = 1 multiplies
+// exactly, so it is bitwise the balanced launch).
 //
 // What bounds it on an H100: launch latency. A half-step at s = 131072 needs
 // 8 bytes an entry (lv, idx), 12 a segment (off, lmarg, out) and the gathered
@@ -51,13 +64,13 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (b > a || b != b) ? b : a;
 }
 
-template <int G>
+template <int G, bool kRho>
 __global__ void sparse_sinkhorn_half_kernel(
     const int* __restrict__ off, const float* __restrict__ lv,
     const int* __restrict__ idx, const float* __restrict__ pot,
-    const float* __restrict__ lmarg, float* __restrict__ out,
-    float* __restrict__ lse_out, long long num, long long s,
-    long long other) {
+    const float* __restrict__ lmarg, const float* __restrict__ rho,
+    float* __restrict__ out, float* __restrict__ lse_out, long long num,
+    long long s, long long other) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long seg = t / G;
   const int k = (int)(t & (G - 1));
@@ -87,19 +100,26 @@ __global__ void sparse_sinkhorn_half_kernel(
   if (k != 0 || seg >= num) return;
   const float lf = acc < kFltMin ? -INFINITY : logf(acc);  // log_floor
   const float lse = acc > 0.f ? lf + ms : kNegInf;
-  const float v = lmarg[seg] - lse;
+  float v = lmarg[seg] - lse;
+  if constexpr (kRho) v = __ldg(rho) * v;  // the unbalanced exponent
   out[seg] = (isfinite(v) && v > kHalfNegInf) ? v : 0.f;  // _finite
   if (lse_out != nullptr) lse_out[seg] = lse;
 }
 
 template <int G>
 cudaError_t launch(const int* off, const float* lv, const int* idx,
-                   const float* pot, const float* lmarg, float* out,
-                   float* lse, long long num, long long s, long long other,
-                   int threads, cudaStream_t stream) {
+                   const float* pot, const float* lmarg, const float* rho,
+                   float* out, float* lse, long long num, long long s,
+                   long long other, int threads, cudaStream_t stream) {
   const long long blocks = (num * G + threads - 1) / threads;
-  sparse_sinkhorn_half_kernel<G><<<(unsigned)blocks, threads, 0, stream>>>(
-      off, lv, idx, pot, lmarg, out, lse, num, s, other);
+  if (rho == nullptr)
+    sparse_sinkhorn_half_kernel<G, false><<<(unsigned)blocks, threads, 0,
+                                            stream>>>(
+        off, lv, idx, pot, lmarg, rho, out, lse, num, s, other);
+  else
+    sparse_sinkhorn_half_kernel<G, true><<<(unsigned)blocks, threads, 0,
+                                           stream>>>(
+        off, lv, idx, pot, lmarg, rho, out, lse, num, s, other);
   return cudaGetLastError();
 }
 
@@ -107,7 +127,8 @@ cudaError_t launch(const int* off, const float* lv, const int* idx,
 
 // One half-step over num segments of a support of s entries whose gathered
 // index runs over [0, other). off (num + 1) int32 segment starts, lv and idx
-// (s) in segment order, pot (other), lmarg and out (num); lse (num) or null:
+// (s) in segment order, pot (other), lmarg and out (num); rho (1) or null:
+// the unbalanced exponent, read on the device; lse (num) or null:
 // where given, each segment's logsumexp as the update used it (_NEG_INF for
 // an empty one), for the backward. group: lanes a segment, 1 to 32, a power
 // of two; threads: a multiple of 32, at most 1024. Returns the cudaError_t
@@ -115,7 +136,8 @@ cudaError_t launch(const int* off, const float* lv, const int* idx,
 // threads it does not take.
 extern "C" int sparse_sinkhorn_half_launch(const int* off, const float* lv,
                                            const int* idx, const float* pot,
-                                           const float* lmarg, float* out,
+                                           const float* lmarg,
+                                           const float* rho, float* out,
                                            float* lse, long long num,
                                            long long s, long long other,
                                            int group, int threads,
@@ -125,12 +147,12 @@ extern "C" int sparse_sinkhorn_half_launch(const int* off, const float* lv,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (group) {
-    case 1: return (int)launch<1>(off, lv, idx, pot, lmarg, out, lse, num, s, other, threads, st);
-    case 2: return (int)launch<2>(off, lv, idx, pot, lmarg, out, lse, num, s, other, threads, st);
-    case 4: return (int)launch<4>(off, lv, idx, pot, lmarg, out, lse, num, s, other, threads, st);
-    case 8: return (int)launch<8>(off, lv, idx, pot, lmarg, out, lse, num, s, other, threads, st);
-    case 16: return (int)launch<16>(off, lv, idx, pot, lmarg, out, lse, num, s, other, threads, st);
-    case 32: return (int)launch<32>(off, lv, idx, pot, lmarg, out, lse, num, s, other, threads, st);
+    case 1: return (int)launch<1>(off, lv, idx, pot, lmarg, rho, out, lse, num, s, other, threads, st);
+    case 2: return (int)launch<2>(off, lv, idx, pot, lmarg, rho, out, lse, num, s, other, threads, st);
+    case 4: return (int)launch<4>(off, lv, idx, pot, lmarg, rho, out, lse, num, s, other, threads, st);
+    case 8: return (int)launch<8>(off, lv, idx, pot, lmarg, rho, out, lse, num, s, other, threads, st);
+    case 16: return (int)launch<16>(off, lv, idx, pot, lmarg, rho, out, lse, num, s, other, threads, st);
+    case 32: return (int)launch<32>(off, lv, idx, pot, lmarg, rho, out, lse, num, s, other, threads, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

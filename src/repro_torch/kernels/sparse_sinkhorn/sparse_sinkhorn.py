@@ -7,10 +7,13 @@ a COO support made contiguous by one of its indices,
     out_i = _finite(lmarg_i - lse_{e in segment i}(lv_e + pot[idx_e]))
 
 with exactly the branches of core/sinkhorn.py's ``segment_logsumexp`` and
-``_finite``. By row it is the update of f from g; by column, of g from f.
-It replaces no TPU kernel (the reference's sparse Sinkhorn is plain jnp
-segment ops); it exists because on the card the plain half-step is ~32
-launches, and the host launching them paced every spar solve.
+``_finite``; given the unbalanced exponent ρ = λ/(λ+ε) (a float32 tensor
+that stays on the device), ``_finite(ρ·(lmarg_i - lse_i))``, the
+unbalanced loop's half-step in the same order of float32 operations. By
+row it is the update of f from g; by column, of g from f. It replaces no
+TPU kernel (the reference's sparse Sinkhorn is plain jnp segment ops); it
+exists because on the card the plain half-step is ~32 launches, and the
+host launching them paced every spar solve, balanced or unbalanced.
 
 :func:`segment_layout` makes the segments contiguous with a stable sort
 and ``searchsorted``, on the device and with no host read: a layout is
@@ -24,11 +27,13 @@ launches.
 Gradients. With grad enabled and an input requiring grad,
 :func:`half_step` goes through :class:`HalfStep`, whose forward is the
 kernel (also writing each segment's logsumexp) and whose backward is plain
-torch: d lmarg = grad where ``_finite`` kept the value,
-d x_e = -grad_i · exp(x_e - lse_i) where it kept it and the segment's
+torch: d lmarg = ρ·grad where ``_finite`` kept the value,
+d x_e = -ρ·grad_i · exp(x_e - lse_i) where it kept it and the segment's
 logsumexp was not ``NEG_INF``, then ``index_add_`` into the potential's
-gradient. That is the gradient autograd takes through the plain version,
-up to the rounding of exp(x - max) / sums against exp(x - lse).
+gradient, and d ρ = Σ_i grad_i · (lmarg_i - lse_i) over the kept segments
+(without ρ: ρ = 1 and no d ρ). That is the gradient autograd takes through
+the plain version, up to the rounding of exp(x - max) / sums against
+exp(x - lse).
 """
 from __future__ import annotations
 
@@ -113,14 +118,16 @@ def segment_layout(keys, idx, num: int, other: int):
 def _lib():
     lib = cuda_lib.load("sparse_sinkhorn")
     lib.sparse_sinkhorn_half_launch.argtypes = [_P, _P, _P, _P, _P, _P, _P,
-                                                _LL, _LL, _LL, _I, _I, _P]
+                                                _P, _LL, _LL, _LL, _I, _I,
+                                                _P]
     lib.sparse_sinkhorn_half_launch.restype = _I
     return lib
 
 
-def _launch(layout, lv, pot, lmarg, want_lse: bool, stream):
+def _launch(layout, lv, pot, lmarg, want_lse: bool, stream, rho=None):
     """The kernel on arguments the caller checked, on ``stream`` (a CUDA
-    stream handle; None: the current stream): (out, lse or None)."""
+    stream handle; None: the current stream), with the exponent ``rho``
+    or without (None: balanced): (out, lse or None)."""
     dev = lv.device
     if dev.type != "cuda":
         raise ValueError(f"K7 takes CUDA tensors, got {dev}; CPU tensors "
@@ -131,35 +138,39 @@ def _launch(layout, lv, pot, lmarg, want_lse: bool, stream):
     lse = torch.empty_like(out) if want_lse else None
     raise_on(_lib().sparse_sinkhorn_half_launch(
         layout.off.data_ptr(), lv.data_ptr(), layout.idx.data_ptr(),
-        pot.data_ptr(), lmarg.data_ptr(), out.data_ptr(),
+        pot.data_ptr(), lmarg.data_ptr(),
+        None if rho is None else rho.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), layout.num, layout.s,
         layout.other, layout.group, THREADS, stream), "sparse_sinkhorn_half")
     LAUNCHES["sparse_sinkhorn_half"] += 1
     return out, lse
 
 
-def half_step(layout, lv, pot, lmarg, stream=None):
+def half_step(layout, lv, pot, lmarg, stream=None, rho=None):
     """out (num,) = _finite(lmarg - lse(lv + pot[idx])) over the layout's
-    segments: lv (s,) in layout order, pot (other,), lmarg (num,), float32
-    and contiguous CUDA tensors, checked by the caller
-    (:func:`check_inputs`). The kernel runs on ``stream`` (a handle a loop
-    fetches once; None: the current stream). With grad enabled and an input
-    requiring grad the call goes through :class:`HalfStep` and its output
-    carries the gradient."""
-    if torch.is_grad_enabled() and (lv.requires_grad or pot.requires_grad
-                                    or lmarg.requires_grad):
-        return HalfStep.apply(layout, lv, pot, lmarg, stream)
-    return _launch(layout, lv, pot, lmarg, False, stream)[0]
+    segments, or _finite(rho·(lmarg - lse(...))) given ``rho``: lv (s,) in
+    layout order, pot (other,), lmarg (num,), rho () or (1,), float32 and
+    contiguous CUDA tensors, checked by the caller (:func:`check_inputs`).
+    The kernel runs on ``stream`` (a handle a loop fetches once; None: the
+    current stream). With grad enabled and an input requiring grad the call
+    goes through :class:`HalfStep` and its output carries the gradient."""
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in (lv, pot, lmarg, rho)):
+        return HalfStep.apply(layout, lv, pot, lmarg, rho, stream)
+    return _launch(layout, lv, pot, lmarg, False, stream, rho)[0]
 
 
-def check_inputs(layout, lv, lmarg):
+def check_inputs(layout, lv, lmarg, rho=None):
     """Raise unless lv (s,) and lmarg (num,) are contiguous float32 tensors
-    on the layout's device: what :func:`half_step` takes, checked once for
-    all the half-steps of a call. The potentials are the half-steps' own
-    outputs."""
+    on the layout's device, and ``rho`` None or one of shape () or (1,):
+    what :func:`half_step` takes, checked once for all the half-steps of a
+    call. The potentials are the half-steps' own outputs."""
     dev = layout.keys.device
     cuda_lib.check_tensor("lv", lv, (layout.s,), torch.float32, dev)
     cuda_lib.check_tensor("lmarg", lmarg, (layout.num,), torch.float32, dev)
+    if rho is not None:
+        cuda_lib.check_tensor("rho", rho, (1,) if rho.dim() else (),
+                              torch.float32, dev)
 
 
 class HalfStep(torch.autograd.Function):
@@ -168,27 +179,31 @@ class HalfStep(torch.autograd.Function):
     that need it."""
 
     @staticmethod
-    def forward(ctx, layout, lv, pot, lmarg, stream):
-        out, lse = _launch(layout, lv, pot, lmarg, True, stream)
+    def forward(ctx, layout, lv, pot, lmarg, rho, stream):
+        out, lse = _launch(layout, lv, pot, lmarg, True, stream, rho)
         ctx.layout = layout
-        ctx.save_for_backward(lv, pot, lmarg, lse)
+        ctx.save_for_backward(lv, pot, lmarg, rho, lse)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        lv, pot, lmarg, lse = ctx.saved_tensors
+        lv, pot, lmarg, rho, lse = ctx.saved_tensors
         layout = ctx.layout
-        _, need_lv, need_pot, need_lmarg, _ = ctx.needs_input_grad
-        v = lmarg - lse
+        _, need_lv, need_pot, need_lmarg, need_rho, _ = ctx.needs_input_grad
+        d = lmarg - lse
+        v = d if rho is None else rho * d
         kept = torch.isfinite(v) & (v > NEG_INF / 2)     # what _finite kept
-        g_lv = g_pot = None
+        g_d = grad if rho is None else rho * grad        # through ρ·d
+        g_lv = g_pot = g_rho = None
         if need_lv or need_pot:
             seg, idx = layout.keys.long(), layout.idx.long()
             live = (kept & (lse > NEG_INF / 2))[seg]
-            gx = torch.where(live, -grad[seg] * torch.exp(
+            gx = torch.where(live, -g_d[seg] * torch.exp(
                 lv + pot[idx] - lse[seg]), 0.0)
             g_lv = gx if need_lv else None
             if need_pot:
                 g_pot = torch.zeros_like(pot).index_add_(0, idx, gx)
-        g_lmarg = torch.where(kept, grad, 0.0) if need_lmarg else None
-        return None, g_lv, g_pot, g_lmarg, None
+        g_lmarg = torch.where(kept, g_d, 0.0) if need_lmarg else None
+        if need_rho:
+            g_rho = torch.where(kept, grad * d, 0.0).sum().reshape(rho.shape)
+        return None, g_lv, g_pot, g_lmarg, g_rho, None

@@ -15,7 +15,10 @@ orders of k terms differ by at most 2 (k - 1) 2⁻²⁴ of the sum, so a
 segment's logsumexp by at most that; the potential's own rounding adds an
 ulp; and a half-step carries the other potential's difference along
 without amplifying it (a logsumexp moves by at most the largest shift of
-its terms), so the differences add up at most once per half-step.
+its terms), so the differences add up at most once per half-step. With
+the unbalanced exponent ρ ≤ 1 a half-step rounds twice (the difference,
+then ρ times it) and shrinks what it carries by ρ, so the bound takes two
+ulps a half-step where it took one.
 
 The lanes of a flush are bitwise their single-lane solves; the gradient
 through ``_spar_pga_step`` on the card (K1's and K7's functions) matches
@@ -76,11 +79,18 @@ def _potentials(body, m, n, iters, dev):
     return carry
 
 
-def _bound(iters, rows, cols, plain):
+def _bound(iters, rows, cols, plain, ulps=1):
     k = max(torch.bincount(rows).max().item(),
             torch.bincount(cols).max().item())
     top = max(x.abs().max().item() for x in plain)
-    return 2 * iters * (2 * (k - 1) * U + 2 * U * top)
+    return 2 * iters * (2 * (k - 1) * U + 2 * U * top * ulps)
+
+
+def _rho(dev):
+    """ρ = λ/(λ+ε) of the unbalanced cell (λ = 1, ε = 1e-2), a float32
+    tensor on the card, as the solver hands it to K7."""
+    return torch.tensor(1.0, device=dev) / (1.0 + torch.tensor(1e-2,
+                                                               device=dev))
 
 
 @pytest.mark.parametrize("B,n,s", [(1, 8192, 131072), (8, 2048, 32768)])
@@ -102,6 +112,48 @@ def test_potentials_after_50_iterations_match_plain(dev, B, n, s):
     assert all(torch.isfinite(x).all() for x in got)
 
 
+@pytest.mark.parametrize("B,n,s", [(1, 8192, 131072), (8, 2048, 32768)])
+def test_unbalanced_potentials_after_50_iterations_match_plain(dev, B, n, s):
+    """The same shapes through the unbalanced bodies, ρ on the card."""
+    a, b, rows, cols, logvals = _inputs(B, n, n, s, 6, dev)
+    r, c = sk._lane_flat(rows, n), sk._lane_flat(cols, n)
+    la, lb, lv = log_floor(a).reshape(-1), log_floor(b).reshape(-1), \
+        logvals.reshape(-1)
+    args, rho = (la, lb, r, c, lv, B * n, B * n), _rho(dev)
+    got = _potentials(ops.logdomain_body(*args, rho=rho), B * n, B * n, 50,
+                      dev)
+    want = _potentials(_plain_body(*args, rho), B * n, B * n, 50, dev)
+    bound = _bound(50, r, c, want, ulps=2)
+    err = max((x - y).abs().max().item() for x, y in zip(got, want))
+    print(f"rho B={B} n={n} s={s}: max |kernel - plain| {err:.3e}, "
+          f"bound {bound:.3e}")
+    assert err <= bound
+    assert all(torch.isfinite(x).all() for x in got)
+
+
+@pytest.mark.parametrize("B,n,s", [(1, 8192, 131072), (8, 2048, 32768)])
+def test_rho_one_launch_is_bitwise_the_balanced_launch(dev, B, n, s):
+    """ρ = 1 multiplies exactly: a launch with it is the balanced launch
+    bit for bit (outputs and logsumexps), and so are 50 iterations."""
+    a, b, rows, cols, logvals = _inputs(B, n, n, s, 7, dev)
+    r, c = sk._lane_flat(rows, n), sk._lane_flat(cols, n)
+    la, lb, lv = log_floor(a).reshape(-1), log_floor(b).reshape(-1), \
+        logvals.reshape(-1)
+    one = torch.ones((), device=dev)
+    layout, perm = sparse_sinkhorn.segment_layout(r, c, B * n, B * n)
+    pot = torch.randn(B * n, device=dev) * 10
+    plain = sparse_sinkhorn._launch(layout, lv[perm], pot, la, True, None)
+    with_rho = sparse_sinkhorn._launch(layout, lv[perm], pot, la, True, None,
+                                       one)
+    assert torch.equal(plain[0], with_rho[0])
+    assert torch.equal(plain[1], with_rho[1])
+    args = (la, lb, r, c, lv, B * n, B * n)
+    got = _potentials(ops.logdomain_body(*args, rho=one), B * n, B * n, 50,
+                      dev)
+    want = _potentials(ops.logdomain_body(*args), B * n, B * n, 50, dev)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_lanes_are_bitwise_their_single_lane_solves(dev):
     B, n, s = 8, 2048, 32768
     a, b, rows, cols, logvals = _inputs(B, n, n, s, 1, dev)
@@ -119,6 +171,16 @@ def test_edge_branches_match_plain(dev):
     """Empty rows and columns, entries at _NEG_INF and -inf, a segment of
     only such entries and a zero marginal entry take the plain version's
     branches: the same entries are 0 and la + 1e30, the rest agree."""
+    _check_edge_branches(dev, None)
+
+
+def test_edge_branches_with_rho_match_plain(dev):
+    """The same branches through the unbalanced bodies: the same entries
+    are 0 and ρ (la + 1e30)."""
+    _check_edge_branches(dev, _rho(dev))
+
+
+def _check_edge_branches(dev, rho):
     m, n, s, iters = 300, 260, 4000, 20
     a, b, rows, cols, logvals = _inputs(1, m, n, s, 2, dev, empty=4)
     a, b, rows, cols, logvals = a[0], b[0], rows[0], cols[0], logvals[0]
@@ -130,15 +192,16 @@ def test_edge_branches_match_plain(dev):
     a[9] = 0.0                                   # la = -inf
     la, lb = log_floor(a), log_floor(b)
     args = (la, lb, rows, cols, logvals, m, n)
-    got = _potentials(ops.logdomain_body(*args), m, n, iters, dev)
-    want = _potentials(_plain_body(*args), m, n, iters, dev)
+    got = _potentials(ops.logdomain_body(*args, rho=rho), m, n, iters, dev)
+    want = _potentials(_plain_body(*args, rho), m, n, iters, dev)
     for x, y in zip(got, want):
         assert torch.equal(x == 0, y == 0)
         assert torch.equal(x > 1e29, y > 1e29)
         assert (y[-4:] > 1e29).all()
     assert got[0][9] == 0 and got[0][5] > 1e29 and got[1][7] > 1e29
     bound = _bound(iters, rows, cols,
-                   [torch.where(y > 1e29, 0.0, y) for y in want])
+                   [torch.where(y > 1e29, 0.0, y) for y in want],
+                   ulps=1 if rho is None else 2)
     for x, y in zip(got, want):
         live = y < 1e29
         assert (x[live] - y[live]).abs().max().item() <= bound
@@ -162,15 +225,40 @@ def test_launches_are_two_an_iteration(dev):
     assert launched % 2 == 0 and 0 < launched <= 1000
 
 
+def test_unbalanced_loop_launches_two_an_iteration(dev):
+    """The unbalanced loop, λ̄ and ε̄ 0-d tensors on the card as the solver
+    gives them: two launches an iteration, with a tolerance until it
+    stops, and one ``solver.sinkhorn_kernel`` span a loop."""
+    n, s, iters = 512, 8192, 37
+    a, b, rows, cols, logvals = _inputs(1, n, n, s, 3, dev)
+    args = (a[0], b[0], rows[0], cols[0], logvals[0])
+    m_t = torch.tensor(0.9, device=dev)
+    lam, eps = 1.0 * m_t, 1e-2 * m_t
+    sparse_sinkhorn.reset_launch_counts()
+    with obs.span("test.loops") as rec:
+        sk.sparse_sinkhorn_unbalanced_log(*args, lam, eps, n, n, iters)
+        assert sparse_sinkhorn.LAUNCHES["sparse_sinkhorn_half"] == 2 * iters
+        sparse_sinkhorn.reset_launch_counts()
+        sk.sparse_sinkhorn_unbalanced_log(*args, lam, eps, n, n, 500,
+                                          tol=1e-3)
+    launched = sparse_sinkhorn.LAUNCHES["sparse_sinkhorn_half"]
+    assert launched % 2 == 0 and 0 < launched <= 1000
+    assert rec["sub"]["solver.sinkhorn_kernel"][0] == 2
+
+
+def _clouds(n, seed):
+    rng = np.random.default_rng(seed)
+    x, y = rng.random((n, 2)), rng.random((n, 2))
+    Cx = np.sqrt(((x[:, None] - x[None]) ** 2).sum(-1)).astype(np.float32)
+    Cy = np.sqrt(((y[:, None] - y[None]) ** 2).sum(-1)).astype(np.float32)
+    return Cx, Cy, np.full(n, 1.0 / n, np.float32)
+
+
 def test_solve_runs_every_sinkhorn_loop_on_the_kernel(dev):
     """A whole spar solve: 20 outer steps of 50 iterations, each loop in a
     ``solver.sinkhorn_kernel`` span under its ``solver.sinkhorn``."""
     n = 300
-    rng = np.random.default_rng(4)
-    x, y = rng.random((n, 2)), rng.random((n, 2))
-    Cx = np.sqrt(((x[:, None] - x[None]) ** 2).sum(-1)).astype(np.float32)
-    Cy = np.sqrt(((y[:, None] - y[None]) ** 2).sum(-1)).astype(np.float32)
-    w = np.full(n, 1.0 / n, np.float32)
+    Cx, Cy, w = _clouds(n, 4)
     sparse_sinkhorn.reset_launch_counts()
     with obs.span("test.solve") as rec:
         out = repro_torch.solve(interop.to_problem(Cx, w, Cy, w),
@@ -183,6 +271,31 @@ def test_solve_runs_every_sinkhorn_loop_on_the_kernel(dev):
     assert sparse_sinkhorn.LAUNCHES["sparse_sinkhorn_half"] == 2 * 50 * 20
     assert rec["sub"]["solver.sinkhorn_kernel"][0] == 20
     assert rec["sub"]["solver.sinkhorn"][0] == 20
+
+
+def test_unbalanced_solve_runs_every_sinkhorn_loop_on_the_kernel(dev):
+    """A whole unbalanced spar solve (λ = 1, the second marginal's mass
+    1.5): 20 outer steps of 50 iterations, each loop through K7 with ρ in
+    a ``solver.sinkhorn_kernel`` span; the value agrees with the plain
+    loops' on the CPU on the same support."""
+    n = 300
+    Cx, Cy, w = _clouds(n, 4)
+    problem = interop.to_problem(Cx, w, Cy, 1.5 * w, lam=1.0)
+    solver = SparGWSolver(s=16 * n)
+    sparse_sinkhorn.reset_launch_counts()
+    with obs.span("test.solve") as rec:
+        out = repro_torch.solve(problem, solver,
+                                generator=torch.Generator(dev).manual_seed(0),
+                                device=dev)
+        torch.cuda.synchronize()
+    assert torch.isfinite(out.value) and out.status.n_rescues == 0
+    assert not out.status.is_diverged
+    assert sparse_sinkhorn.LAUNCHES["sparse_sinkhorn_half"] == 2 * 50 * 20
+    assert rec["sub"]["solver.sinkhorn_kernel"][0] == 20
+    assert rec["sub"]["solver.sinkhorn"][0] == 20
+    on_cpu = repro_torch.solve(problem, solver, device="cpu", support=(
+        out.coupling.rows.cpu(), out.coupling.cols.cpu()))
+    assert out.value.item() == pytest.approx(on_cpu.value.item(), rel=1e-4)
 
 
 def test_unrolled_gradient_through_the_kernel_matches_plain(dev):

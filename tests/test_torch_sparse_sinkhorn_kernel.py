@@ -13,7 +13,9 @@ backward to autograd through the plain body within 1e-4 of the largest
 gradient entry (exp(x - lse) against exp(x - max) / sums, and the
 rounding-level gradient autograd sends through the max, carried over 12
 iterations: 1.2e-5 measured); the core loops on CPU tensors are held to
-the plain loops as they were before the kernel, bit for bit.
+the plain loops as they were before the kernel, bit for bit. The same
+holds with the unbalanced exponent ρ (the launch's ``rho``) against the
+plain unbalanced body, its backward taking d ρ too.
 """
 import importlib
 from types import SimpleNamespace
@@ -33,6 +35,9 @@ from repro_torch import obs
 sk = importlib.import_module("repro_torch.core.sinkhorn")
 
 GRAD_ATOL_REL = 1e-4
+# ρ = λ/(λ+ε) of the unbalanced cell (λ = 1, ε = 1e-2) and of its two
+# ε-rescues (ε x 2, x 4), and ρ = 1
+RHOS = [1.0, 1 / 1.01, 1 / 1.02, 1 / 1.04]
 
 
 @pytest.fixture(autouse=True)
@@ -43,11 +48,13 @@ def _one_torch_thread():
     torch.set_num_threads(threads)
 
 
-def _plain_launch(layout, lv, pot, lmarg, want_lse, stream):
+def _plain_launch(layout, lv, pot, lmarg, want_lse, stream, rho=None):
     """The kernel's launch as plain torch on the layout: (out, lse)."""
     lse = sk.segment_logsumexp(lv + pot[layout.idx.long()],
                                layout.keys.long(), layout.num)
-    return sk._finite(lmarg - lse), lse
+    if rho is None:
+        return sk._finite(lmarg - lse), lse
+    return sk._finite(rho * (lmarg - lse)), lse
 
 
 @pytest.fixture
@@ -128,30 +135,55 @@ def test_group_width_follows_the_mean_segment_length(s, num, want):
     assert group_width(s, num) == want
 
 
-def _plain_body(la, lb, rows, cols, logvals, m, n):
-    def body(carry):
+def _plain_body(la, lb, rows, cols, logvals, m, n, rho=None):
+    """The core's plain body: balanced, or unbalanced given ``rho``."""
+    if rho is None:
+        def body(carry):
+            f, g = carry
+            f = sk._finite(la - sk.segment_logsumexp(logvals + g[cols], rows,
+                                                     m))
+            g = sk._finite(lb - sk.segment_logsumexp(logvals + f[rows], cols,
+                                                     n))
+            return (f, g)
+        return body
+
+    def unbalanced(carry):
         f, g = carry
-        f = sk._finite(la - sk.segment_logsumexp(logvals + g[cols], rows, m))
-        g = sk._finite(lb - sk.segment_logsumexp(logvals + f[rows], cols, n))
+        f = sk._finite(rho * (la - sk.segment_logsumexp(logvals + g[cols],
+                                                        rows, m)))
+        g = sk._finite(rho * (lb - sk.segment_logsumexp(logvals + f[rows],
+                                                        cols, n)))
         return (f, g)
-    return body
+    return unbalanced
+
+
+def _check_body_bitwise(rho):
+    m, n, s = 40, 33, 500
+    a, b, rows, cols, logvals = _problem(m, n, s, 3)
+    la, lb = log_floor(a), log_floor(b)
+    got = want = (torch.zeros(m), torch.zeros(n))
+    body = ops.logdomain_body(la, lb, rows, cols, logvals, m, n, rho=rho)
+    plain = _plain_body(la, lb, rows, cols, logvals, m, n, rho)
+    for _ in range(30):
+        got, want = body(got), plain(want)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # an empty row's logsumexp is _NEG_INF, so its f is ρ (la + 1e30)
+    assert (got[0][-3:] > 1e29).all() and (got[1][-3:] > 1e29).all()
 
 
 def test_kernel_body_on_cpu_is_the_plain_body_bitwise(plain_launch):
     """The body that drives K7, on CPU tensors (plain half-steps over the
     layouts), against the core's plain body: empty rows and columns,
     entries at _NEG_INF and -inf, 30 iterations."""
-    m, n, s = 40, 33, 500
-    a, b, rows, cols, logvals = _problem(m, n, s, 3)
-    la, lb = log_floor(a), log_floor(b)
-    got = want = (torch.zeros(m), torch.zeros(n))
-    body = ops.logdomain_body(la, lb, rows, cols, logvals, m, n)
-    plain = _plain_body(la, lb, rows, cols, logvals, m, n)
-    for _ in range(30):
-        got, want = body(got), plain(want)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    # an empty row's logsumexp is _NEG_INF, so its f is la + 1e30
-    assert (got[0][-3:] > 1e29).all() and (got[1][-3:] > 1e29).all()
+    _check_body_bitwise(None)
+
+
+@pytest.mark.parametrize("rho", RHOS)
+def test_kernel_body_with_rho_on_cpu_is_the_plain_unbalanced_body_bitwise(
+        plain_launch, rho):
+    """The same with the unbalanced exponent, a float32 tensor as the
+    solver hands it over, against the core's plain unbalanced body."""
+    _check_body_bitwise(torch.tensor(rho))
 
 
 def test_kernel_refuses_cpu_tensors():
@@ -180,6 +212,34 @@ def test_kernel_body_refuses_inputs_it_does_not_take():
         ops.logdomain_body(la[:-1], lb, rows, cols, logvals, m, n)
     with pytest.raises(ValueError):
         ops.logdomain_body(la, lb, rows[:-1], cols, logvals, m, n)
+
+
+@pytest.mark.parametrize("rho,error", [
+    (torch.tensor(0.99, dtype=torch.float64), TypeError),
+    (torch.empty((), device="meta"), ValueError),
+    (torch.full((2,), 0.99), ValueError),
+    (torch.full((1, 1), 0.99), ValueError),
+    (torch.tensor(0.99), None),
+    (torch.full((1,), 0.99), None),
+])
+def test_check_inputs_refuses_a_rho_it_does_not_take(rho, error):
+    """ρ is a float32 tensor of shape () or (1,) on the layout's device:
+    the wrong dtype, device or shape raises, in the checks and in the body
+    that makes them."""
+    m, n, s = 10, 8, 40
+    a, b, rows, cols, logvals = _problem(m, n, s, 4)
+    layout, perm = segment_layout(rows, cols, m, n)
+    args = (layout, logvals[perm], log_floor(a))
+    if error is None:
+        sparse_sinkhorn.check_inputs(*args, rho)
+        ops.logdomain_body(log_floor(a), log_floor(b), rows, cols, logvals,
+                           m, n, rho=rho)
+        return
+    with pytest.raises(error, match="rho"):
+        sparse_sinkhorn.check_inputs(*args, rho)
+    with pytest.raises(error, match="rho"):
+        ops.logdomain_body(log_floor(a), log_floor(b), rows, cols, logvals,
+                           m, n, rho=rho)
 
 
 def _old_logdomain(a, b, rows, cols, logvals, m, n, iters, tol):
@@ -211,19 +271,45 @@ def _old_logdomain_lanes(a, b, rows, cols, logvals, iters, tol):
                                      + g.reshape(-1)[c])).view(B, s)
 
 
+def _old_unbalanced_log(a, b, rows, cols, logvals, lam, eps, m, n, iters,
+                        tol):
+    """sparse_sinkhorn_unbalanced_log as it was before the kernel route."""
+    rho = lam / (lam + eps)
+    la, lb = log_floor(a), log_floor(b)
+    body = _plain_body(la, lb, rows, cols, logvals, m, n, rho)
+    f, g = sk._scaling_loop(body, (torch.zeros(m), torch.zeros(n)), iters,
+                            tol)
+    return flush_subnormal(torch.exp(logvals + f[rows] + g[cols]))
+
+
 def _kernel_spans():
     return sum(1 for r in obs.spans()
                if r["name"] == "solver.sinkhorn_kernel")
 
 
-@pytest.mark.parametrize("tol", [0.0, 1e-4])
-def test_cpu_tensors_take_the_plain_body_as_before(tol):
+@pytest.mark.parametrize("tol,loop", [
+    (0.0, "balanced"), (1e-4, "balanced"), (0.0, "unbalanced"),
+    (1e-4, "unbalanced")], ids=["0.0", "0.0001", "unbalanced-0.0",
+                               "unbalanced-0.0001"])
+def test_cpu_tensors_take_the_plain_body_as_before(tol, loop):
     """On the CPU the core loops are what they were, bit for bit, launch
-    nothing and open no kernel span."""
+    nothing and open no kernel span: the balanced loop and its lanes, and
+    the unbalanced loop with λ̄ and ε̄ as 0-d tensors (as the solver hands
+    them over) and as floats."""
     m, n, s = 30, 26, 300
     sparse_sinkhorn.reset_launch_counts()
     spans_before = _kernel_spans()
     a, b, rows, cols, logvals = _problem(m, n, s, 5)
+    if loop == "unbalanced":
+        mT = torch.tensor(0.83)
+        for lam, eps in ((1.0 * mT, 1e-2 * 2.0 * mT), (1.0, 1e-2)):
+            got = sk.sparse_sinkhorn_unbalanced_log(
+                a, b, rows, cols, logvals, lam, eps, m, n, 40, tol=tol)
+            assert torch.equal(got, _old_unbalanced_log(
+                a, b, rows, cols, logvals, lam, eps, m, n, 40, tol))
+        assert sparse_sinkhorn.LAUNCHES["sparse_sinkhorn_half"] == 0
+        assert _kernel_spans() == spans_before
+        return
     got = sk.sparse_sinkhorn_logdomain(a, b, rows, cols, logvals, m, n, 40,
                                        tol=tol)
     assert torch.equal(got, _old_logdomain(a, b, rows, cols, logvals, m, n,
@@ -236,13 +322,7 @@ def test_cpu_tensors_take_the_plain_body_as_before(tol):
     assert _kernel_spans() == spans_before
 
 
-def test_half_step_function_backward_matches_autograd_through_plain(
-        plain_launch):
-    """HalfStep's plain backward (through the body on CPU tensors, whose
-    forward is the plain half-step) against autograd through the core's
-    plain body: gradients of a coupling's weighted sum with respect to the
-    log-kernel and both marginals, after 12 iterations, with empty rows
-    and columns and -inf entries on the support."""
+def _check_grads(rho):
     m, n, s = 24, 20, 240
     a, b, rows, cols, logvals = _problem(m, n, s, 9)
     logvals = torch.where(logvals < -1e29, -1e3, logvals)  # finite grads
@@ -253,21 +333,43 @@ def test_half_step_function_backward_matches_autograd_through_plain(
         lv = logvals.clone().requires_grad_(True)
         aa = a.clone().requires_grad_(True)
         bb = b.clone().requires_grad_(True)
+        r = None if rho is None else torch.tensor(rho, requires_grad=True)
         la, lb = log_floor(aa), log_floor(bb)
-        body = make_body(la, lb, rows, cols, lv, m, n)
+        body = make_body(la, lb, rows, cols, lv, m, n, rho=r)
         carry = (torch.zeros(m), torch.zeros(n))
         for _ in range(12):
             carry = body(carry)
         f, g = carry
         T = flush_subnormal(torch.exp(lv + f[rows] + g[cols]))
         (T * weight).sum().backward()
-        return lv.grad, aa.grad, bb.grad
+        return (lv.grad, aa.grad, bb.grad) + (() if r is None else
+                                              (r.grad,))
 
     got, want = grads(ops.logdomain_body), grads(_plain_body)
+    assert len(got) == len(want) == (3 if rho is None else 4)
     for x, y in zip(got, want):
         assert torch.isfinite(y).all()
         torch.testing.assert_close(
             x, y, rtol=0, atol=GRAD_ATOL_REL * y.abs().max().item())
+
+
+def test_half_step_function_backward_matches_autograd_through_plain(
+        plain_launch):
+    """HalfStep's plain backward (through the body on CPU tensors, whose
+    forward is the plain half-step) against autograd through the core's
+    plain body: gradients of a coupling's weighted sum with respect to the
+    log-kernel and both marginals, after 12 iterations, with empty rows
+    and columns and -inf entries on the support."""
+    _check_grads(None)
+
+
+@pytest.mark.parametrize("rho", RHOS)
+def test_half_step_function_backward_with_rho_matches_autograd(
+        plain_launch, rho):
+    """The same through the unbalanced bodies, ρ a leaf that requires
+    grad: d ρ sums g_i (lmarg_i - lse_i) over both half-steps of every
+    iteration."""
+    _check_grads(rho)
 
 
 def test_half_step_takes_the_function_only_with_a_gradient(plain_launch):
@@ -282,6 +384,12 @@ def test_half_step_takes_the_function_only_with_a_gradient(plain_launch):
         assert half_step(layout, lv, pot, log_floor(a)).grad_fn is None
     assert half_step(layout, lv, pot.detach(),
                      log_floor(a)).grad_fn is None
+    # ρ alone requiring grad takes the function too
+    rho = torch.tensor(0.99, requires_grad=True)
+    assert half_step(layout, lv, pot.detach(), log_floor(a),
+                     rho=rho).grad_fn is not None
+    assert half_step(layout, lv, pot.detach(), log_floor(a),
+                     rho=rho.detach()).grad_fn is None
 
 
 # -- the reader of solver.sinkhorn_kernel_share ----------------------------
